@@ -14,7 +14,10 @@ setup(
     "(frame2frame capabilities)",
     long_description=long_description,
     long_description_content_type="text/markdown",
-    packages=find_packages(include=["frame2frame_tpu", "frame2frame_tpu.*"]),
+    packages=find_packages(include=["frame2frame_tpu", "frame2frame_tpu.*",
+                                    "frame2frame_tpu_torch",
+                                    "frame2frame_tpu_torch.*"]),
+    package_data={"frame2frame_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",
