@@ -6,12 +6,13 @@ NVIDIA GPU.
 
 Phases, any failure exits non-zero:
 1. card name and power limit (nvidia-smi), torch and CUDA versions;
-2. build of the CUDA kernels from ``frame2frame_tpu_torch/csrc``;
+2. build of the CUDA kernels from ``frame2frame_tpu_torch/csrc``, one
+   ``nvcc`` process a source, all at once;
 3. each kernel against its plain PyTorch version at small shapes that leave
-   partial tiles, then at 540x960x64, B=1 and B=4 (bf16 storage; f32 too
-   for ``fwd_layer_eval``), with CUDA-event times of
-   the kernel, the plain version and a library yardstick (``F.conv2d`` on
-   bf16 channels-last, which the port never calls);
+   partial tiles, then at 540x960x64 (bf16 storage; B=4 and f32 too for the
+   eval kernels), with CUDA-event times of the kernel, the plain version
+   and a library yardstick that the port never calls (``F.conv2d``, and
+   ``aten.convolution_backward`` for ``bwd_layer``, on bf16 channels-last);
 4. the serving path: the pretrained DnCNN-17 (results/dncnn17_s25) loaded
    through the port, ``OnlineDenoiser.denoise_only`` and ``denoise_batch``
    (both routes) on four 540p synthetic noisy frames under the "affine" and
@@ -19,7 +20,14 @@ Phases, any failure exits non-zero:
    plain forward on the card, with a denoising gain and the kernels' launch
    counts checked; then per-call host-clock and device times of the
    serving calls, with their kernels by device time (torch.profiler);
-5. a JSON line of per-kernel numbers, then the card line, then the result
+5. the online fine-tune: three synthetic 540p frames of one moving texture
+   with their flow; one step's loss and parameter gradients on the kernels
+   against the same step on their plain versions;
+   ``OnlineDenoiser.process_frame`` (20 Adam updates, then the eval denoise)
+   on two frames with the launch counts and the losses checked; the same two
+   frames fine-tuned by the plain module's autograd in f32, losses and PSNR
+   compared; host-clock and device times of ``process_frame``;
+6. a JSON line of per-kernel numbers, then the card line, then the result
    line ``{"ok": true, "device": {...}}``.
 
 The script imports torch, numpy and the port only.
@@ -27,7 +35,10 @@ The script imports torch, numpy and the port only.
 
 from __future__ import annotations
 
+import copy
+import functools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -52,11 +63,36 @@ KERNEL_RTOL = 1e-2
 SERVE_ATOL = 2e-2
 SERVE_PSNR_TOL = 0.05  # dB
 MIN_GAIN_DB = 1.0
+# sums over the pixels (BN sums, dW) against the plain version's, relative
+# to the largest of the same output: the plain versions round their dot
+# operands as the kernels do, so only the order of the f32 additions differs
+SUMS_RTOL = 2e-3
+# one fine-tune step, kernels against their plain versions. Forward: the
+# loss, and the new running statistics relative to the largest of their
+# kind. Backward, from the same forward: per parameter max |d grad| /
+# max |grad|
+# (measured on an H100: 6.3e-5, 3.1e-6 and 1.8e-3)
+STEP_LOSS_RTOL = 5e-4
+STEP_STATS_RTOL = 1e-4
+STEP_GRAD_RTOL = 5e-3
+# the bf16 kernel fine-tune against the f32 module's: per-iteration losses,
+# and PSNR of the denoised frames against the clean ones (measured on an
+# H100: 1.9e-3 and 0.044 dB)
+TRAIN_LOSS_RTOL = 5e-3
+TRAIN_PSNR_TOL = 0.1  # dB
+ITERS = 20
 REPLACES = {
     "fwd_layer": "frame2frame_tpu/ops/fused_stack.py:673",
+    "fwd_layer_train": "frame2frame_tpu/ops/fused_stack.py:673",
     "fwd_layer_eval": "frame2frame_tpu/ops/fused_stack.py:870",
+    "bwd_layer": "frame2frame_tpu/ops/fused_stack.py:1161",
 }
-SOURCE = "frame2frame_tpu_torch/csrc/fused_stack.cu"
+SOURCES = {
+    "fwd_layer": "frame2frame_tpu_torch/csrc/fused_stack.cu",
+    "fwd_layer_train": "frame2frame_tpu_torch/csrc/fused_stack.cu",
+    "fwd_layer_eval": "frame2frame_tpu_torch/csrc/fused_stack.cu",
+    "bwd_layer": "frame2frame_tpu_torch/csrc/fused_stack_bwd.cu",
+}
 
 
 class SmokeFailure(Exception):
@@ -178,6 +214,141 @@ def kernel_phase(torch, F, fs, cuda_time_ms):
     return rows
 
 
+def rel_err(got, ref):
+    """(max |got - ref|, max |ref|) over f32 copies."""
+    return (float((got.float() - ref.float()).abs().max()),
+            float(ref.float().abs().max()))
+
+
+def hold_close(tag, what, got, ref, rtol, atol=1e-6):
+    err, scale = rel_err(got, ref)
+    check(got.shape == ref.shape and got.dtype == ref.dtype,
+          f"{tag} {what}: shape/dtype {tuple(got.shape)} {got.dtype}")
+    check(err <= rtol * scale + atol,
+          f"{tag} {what}: max|kernel-plain| {err} > {rtol} * {scale}")
+    return err, scale
+
+
+def train_inputs(torch, rng, shape, dt):
+    """Inputs of the training kernels at ``shape`` (B, H, W): z_prev, z_i, g
+    in ``dt`` and the (8, 64) vectors of one backward layer."""
+    def t(scale=1.0):
+        return (scale * torch.from_numpy(rng.standard_normal(
+            shape + (FEAT,), dtype=np.float32)).cuda()).to(dt).contiguous()
+
+    def vec(mean, std):
+        return mean + std * rng.standard_normal(FEAT)
+
+    vecs = np.stack([vec(1.0, 0.2), vec(0.0, 0.1), vec(0.0, 1e-3),
+                     vec(0.0, 1e-3), vec(1.0, 0.2), vec(0.0, 0.1),
+                     0.5 + rng.random(FEAT), vec(0.0, 0.1)])
+    return t(), t(), t(0.1), torch.from_numpy(vecs.astype(np.float32)).cuda()
+
+
+def hold_train_kernels(torch, fs, tag, z_prev, z_i, g, w, wk, vecs):
+    """``fwd_layer_train`` and ``bwd_layer`` (``first_layer`` both ways)
+    against their plain versions with the kernels' operand rounding; returns
+    the errors by output."""
+    errs = {}
+    s, b = vecs[fs.V_SP].contiguous(), vecs[fs.V_BP].contiguous()
+    z, stats = fs.fwd_layer_train(z_prev, wk, s, b)
+    torch.cuda.synchronize()
+    z_ref, stats_ref = fs.fwd_layer_train_plain(z_prev, w, s, b,
+                                                mma_bf16=True)
+    errs["z"] = hold_close(tag, "z", z, z_ref, KERNEL_RTOL)
+    for k, name in enumerate(("sum_z", "sum_z2")):
+        errs[name] = hold_close(tag, name, stats[k], stats_ref[k], SUMS_RTOL)
+    for first in (False, True):
+        sfx = "_first" if first else ""
+        da, dw, sp = fs.bwd_layer(g, z_i, z_prev, wk, vecs, first)
+        torch.cuda.synchronize()
+        da_ref, dw_ref, sp_ref = fs.bwd_layer_plain(g, z_i, z_prev, w, vecs,
+                                                    first, mma_bf16=True)
+        errs["da" + sfx] = hold_close(tag, "da" + sfx, da, da_ref, KERNEL_RTOL)
+        errs["dW" + sfx] = hold_close(tag, "dW" + sfx, dw, dw_ref, SUMS_RTOL)
+        for k, name in enumerate(("sum_gp", "sum_gp_zhat")):
+            errs[name + sfx] = hold_close(tag, name + sfx, sp[k], sp_ref[k],
+                                    SUMS_RTOL)
+    return errs
+
+
+def train_kernel_phase(torch, F, fs, cuda_time_ms):
+    """The training kernels against their plain versions; returns the
+    per-kernel rows."""
+    rng = np.random.default_rng(2)
+    w = torch.from_numpy((rng.standard_normal((3, 3, FEAT, FEAT))
+                          * np.sqrt(2.0 / (9 * FEAT))).astype(np.float32)).cuda()
+    wk = fs.kernel_weights(w)
+    for shape in ((3, 13, 20), (2, 37, 50), (1, 5, 7), (1, 1, 1)):
+        for dt in (torch.bfloat16, torch.float32):
+            z_prev, z_i, g, vecs = train_inputs(torch, rng, shape, dt)
+            hold_train_kernels(torch, fs, f"train kernels {shape} {dt}",
+                               z_prev, z_i, g, w, wk, vecs)
+    print("training kernel edge shapes: ok", flush=True)
+
+    z_prev, z_i, g, vecs = train_inputs(torch, rng, (1, H, W), torch.bfloat16)
+    errs = hold_train_kernels(torch, fs, "train kernels 540p bf16", z_prev,
+                              z_i, g, w, wk, vecs)
+    print("training kernels 540p bf16: " + ", ".join(
+        f"{k} {e:.3e}/{s:.3e}" for k, (e, s) in errs.items()), flush=True)
+    # the same inputs twice: the reductions must give the same bits
+    s, b = vecs[fs.V_SP].contiguous(), vecs[fs.V_BP].contiguous()
+    for what, fn in (("fwd_layer_train", lambda: fs.fwd_layer_train(
+            z_prev, wk, s, b)[1]), ("bwd_layer", lambda: torch.cat([
+                o.reshape(-1) for o in fs.bwd_layer(
+                    g, z_i, z_prev, wk, vecs, False)[1:]]))):
+        check(torch.equal(fn(), fn()), f"{what}: sums differ between two "
+              "runs on the same inputs")
+
+    # library yardsticks on bf16 channels-last, operands prepared outside
+    w_lib = w.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    a_lib = torch.relu(z_prev.float() * s + b).to(torch.bfloat16).permute(
+        0, 3, 1, 2)
+    dz_lib = g.permute(0, 3, 1, 2)
+
+    def library_bwd():
+        return torch.ops.aten.convolution_backward(
+            dz_lib, a_lib, w_lib, None, [1, 1], [1, 1], [1, 1], False,
+            [0, 0], 1, [True, True, False])
+
+    act = z_prev.numel() * z_prev.element_size()
+    small = wk.numel() * wk.element_size() + 2 * FEAT * 4
+    flops = 2 * H * W * FEAT * FEAT * 9
+    rows = {}
+    for name, kern, plain, library, nbytes, nflops, err in (
+            ("fwd_layer_train",
+             lambda: fs.fwd_layer_train(z_prev, wk, s, b),
+             lambda: fs.fwd_layer_train_plain(z_prev, w, s, b, mma_bf16=True),
+             lambda: F.conv2d(a_lib, w_lib, padding=1),
+             2 * act + small + 2 * FEAT * 4, flops, errs["z"]),
+            ("bwd_layer",
+             lambda: fs.bwd_layer(g, z_i, z_prev, wk, vecs, False),
+             lambda: fs.bwd_layer_plain(g, z_i, z_prev, w, vecs, False,
+                                        mma_bf16=True),
+             library_bwd,
+             4 * act + small + 8 * FEAT * 4 + 9 * FEAT * FEAT * 4,
+             2 * flops, errs["da"])):
+        ms = cuda_time_ms(kern)
+        plain_ms = cuda_time_ms(plain, iters=5)
+        library_ms = cuda_time_ms(library)
+        bms, by = bound_ms(nbytes, nflops)
+        rows[name] = [{
+            "B": 1, "dtype": "bfloat16", "max_abs_err": err[0],
+            "max_abs_plain": err[1], "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bms, "bound_by": by,
+            "errors": {k: {"max_abs_err": e, "max_abs_plain": sc}
+                       for k, (e, sc) in errs.items()}}]
+        print(f"kernel {name} B=1 bfloat16: err {err[0]:.3e} (plain max "
+              f"{err[1]:.3e}) ms {ms:.4f} plain {plain_ms:.4f} library "
+              f"{library_ms:.4f} bound {bms:.4f} ({by})", flush=True)
+    # bwd_layer also writes dz once as bf16 and reads it and z_prev again
+    rows["bwd_layer"][0]["bound_ms_as_run"] = bound_ms(
+        7 * act + small, 2 * flops)[0]
+    torch.cuda.empty_cache()
+    return rows
+
+
 def synthetic_frames(n, seed=0):
     """Smooth textured clean frames in [0.1, 0.9] and their noisy versions
     (additive Gaussian noise, sigma 25/255)."""
@@ -201,7 +372,7 @@ def synthetic_frames(n, seed=0):
     return clean, noisy.astype(np.float32)
 
 
-def profile_call(torch, fn, iters=10):
+def profile_call(torch, fn, iters=10, top=6):
     """Host-clock milliseconds per call of ``fn`` (median of ``iters``, each
     ending in a synchronize), then one torch.profiler pass over ``iters``
     calls: device kernel time per call, the device's busy share of the
@@ -230,12 +401,236 @@ def profile_call(torch, fn, iters=10):
             k[0] += 1
             k[1] += e.time_range.elapsed_us() / 1e3
     device_ms = sum(v[1] for v in kernels.values())
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:6]
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:top]
     return {"ms": float(np.median(ts)),
             "device_ms": device_ms / iters if kernels else None,
             "busy_share": device_ms / wall_ms if kernels else None,
             "top_kernels": [{"name": n, "calls": c // iters,
                              "ms": t / iters} for n, (c, t) in top]}
+
+
+def moving_frames(n, seed=3):
+    """``n`` 540p frames of one textured scene that moves by a known
+    displacement per frame, and the flow from each frame to the one before.
+
+    The scene is an analytic texture sampled at displaced coordinates, so
+    sub-pixel motion needs no interpolation: a global translation of
+    (0.6, -0.4) px a frame, a smooth vertical wave of 0.3 px, and a
+    rectangle that moves 3 px a frame faster than its surround, whose edges
+    the occlusion mask must reject. Returns (clean, noisy) (n, H, W, 1) f32
+    and flows (n, H, W, 2) f32 (``flows[k]``: frame k -> frame k-1; entry 0
+    unused), noise sigma 25/255."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float64)
+    waves = [(rng.uniform(0.002, 0.03, 2), rng.uniform(0, 2 * np.pi),
+              rng.uniform(0.3, 1.0)) for _ in range(6)]
+    discs = [(rng.uniform(0, H), rng.uniform(0, W), rng.uniform(20, 120),
+              rng.uniform(-1, 1)) for _ in range(8)]
+
+    def scene(y, x):
+        img = np.zeros_like(y)
+        for (fy, fx), ph, amp in waves:
+            img += amp * np.sin(2 * np.pi * (fy * y + fx * x) + ph)
+        for cy, cx, r, amp in discs:
+            img += amp / (1.0 + np.exp((np.hypot(y - cy, x - cx) - r) / 2.0))
+        return img
+
+    rect = ((yy > 0.3 * H) & (yy < 0.6 * H) & (xx > 0.4 * W) & (xx < 0.7 * W))
+    u = 0.6 + 3.0 * rect                      # x displacement a frame
+    v = -0.4 + 0.3 * np.sin(2 * np.pi * xx / 400.0)
+    clean = np.stack([scene(yy + k * v, xx + k * u) for k in range(n)])
+    clean = 0.1 + 0.8 * (clean - clean.min()) / (clean.max() - clean.min())
+    clean = clean[..., None].astype(np.float32)
+    noisy = clean + SIGMA * rng.standard_normal(clean.shape).astype(np.float32)
+    # frame k samples the scene at p + k d(p), frame k-1 at p + (k-1) d(p):
+    # the content of frame k at p lies in frame k-1 at p + d(p), exactly
+    # where d is constant around p
+    flow = np.stack([u, v], -1).astype(np.float32)
+    return clean, noisy.astype(np.float32), np.stack([flow] * n)
+
+
+def training_phase(torch, fs, psnr, variables, model):
+    """The online fine-tune; returns (launch counts of the counted run,
+    timings and comparisons)."""
+    from frame2frame_tpu_torch.models import fused_apply as fa
+    from frame2frame_tpu_torch.models.dncnn import JaxRavel, param_leaves
+    from frame2frame_tpu_torch.ops.warp import (
+        bilinear_warp_with_mask, occlusion_mask)
+    from frame2frame_tpu_torch.train.online import OnlineDenoiser, torch_adam
+
+    dev = torch.device("cuda")
+    clean, noisy, flows = moving_frames(3)
+    frames = torch.from_numpy(noisy).to(dev)
+    flow_t = torch.from_numpy(flows).to(dev)
+    out = {}
+
+    def mask_and_target(k):
+        with torch.no_grad():
+            warped, mask = bilinear_warp_with_mask(frames[k - 1], flow_t[k])
+            mask = occlusion_mask(flow_t[k], mask)
+        return mask, mask * warped
+
+    mask, target = mask_and_target(1)
+    kept = float(mask.mean())
+    # the flow is right: the warped clean frame lies on the clean frame
+    with torch.no_grad():
+        cw, _ = bilinear_warp_with_mask(torch.from_numpy(clean[0]).to(dev),
+                                        flow_t[1])
+        align = float((mask * (cw - torch.from_numpy(clean[1]).to(dev)))
+                      .abs().sum() / mask.sum())
+    print(f"training: mask keeps {kept:.4f} of the pixels, mean |warped "
+          f"clean - clean| under it {align:.5f}", flush=True)
+    check(0.5 < kept < 0.999, f"occlusion mask keeps {kept} of the pixels")
+    check(align < 5e-3, f"flow misaligns the clean frames by {align}")
+
+    # (a) one step on the kernels against the same step on their plain
+    # versions. Two forwards that round one operand differently drift apart
+    # layer by layer (each rounding to bf16 and each ReLU is a decision), and
+    # the pretrained model sits near its optimum, where a gradient entry is
+    # a sum of 518 400 terms that nearly cancel: a few hundred decisions
+    # that fall the other way move it by percents, whatever computed it.
+    # So the forward is held by what it delivers (loss, batch statistics),
+    # and the backward kernels are held against their plain versions from
+    # the SAME forward, the kernels'. The gradients of the two independent
+    # routes are printed beside that.
+    def one_step(mid_stack):
+        m = copy.deepcopy(model).to(dev)
+        y = fa.fused_train_apply(m, frames[1][None], mid_stack=mid_stack)[0]
+        loss = (mask * y - target).abs().sum()
+        loss.backward()
+        torch.cuda.synchronize()
+        stats = {k: torch.stack([getattr(m.mid(i)[1], k)
+                                 for i in range(m.nmid)])
+                 for k in ("running_mean", "running_var")}
+        return (float(loss.detach()), stats,
+                {n: p.grad for n, p in param_leaves(m)})
+
+    def grad_errors(grads, ref):
+        rel = {}
+        for name, gk in grads.items():
+            check(bool(torch.isfinite(gk).all()),
+                  f"one step: non-finite gradient of {name}")
+            err, scale = rel_err(gk, ref[name])
+            rel[name] = err / scale
+        return rel
+
+    plain = functools.partial(fs.fused_mid_stack_plain, mma_bf16=True)
+    loss_k, stats_k, grads_k = one_step(fs.fused_mid_stack)
+    loss_p, stats_p, grads_p = one_step(plain)
+    _, _, grads_b = one_step(functools.partial(plain, kernel_forward=True))
+    check(np.isfinite(loss_k), "one step: non-finite loss")
+    dl = abs(loss_k - loss_p) / abs(loss_p)
+    ds = max(e / s for e, s in (rel_err(stats_k[k], stats_p[k])
+                                for k in stats_k))
+    independent = max(grad_errors(grads_k, grads_p).values())
+    rel = grad_errors(grads_k, grads_b)
+    by_err = sorted(rel, key=rel.get, reverse=True)
+    worst = rel[by_err[0]]
+    print(f"training one step: loss kernels {loss_k:.4f} plain {loss_p:.4f} "
+          f"(rel {dl:.3e}), running statistics rel {ds:.3e}; gradients "
+          f"from the kernels' forward, max|d|/max|ref| over {len(rel)} "
+          "parameters, worst first: "
+          + ", ".join(f"{n} {rel[n]:.3e}" for n in by_err[:5])
+          + f"; from each route's own forward {independent:.3e}", flush=True)
+    check(dl <= STEP_LOSS_RTOL, f"one step: loss off plain by {dl}")
+    check(ds <= STEP_STATS_RTOL, f"one step: statistics off plain by {ds}")
+    check(worst <= STEP_GRAD_RTOL, f"one step: gradient off plain by {worst}")
+    out["one_step"] = {"loss": loss_k, "loss_plain": loss_p,
+                       "running_stats_rel_err": ds,
+                       "worst_grad_rel_err": worst,
+                       "worst_grad_rel_err_independent_forwards": independent}
+    del grads_b
+    del grads_k, grads_p
+    torch.cuda.empty_cache()
+
+    # (b) the main path: two fine-tuned frames through the engine
+    eng = OnlineDenoiser(model, variables, iters=ITERS, residual_model=True,
+                         device="cuda")
+    nmid = model.nmid
+    want = {"fwd_layer": nmid, "fwd_layer_train": nmid * ITERS,
+            "fwd_layer_eval": 0, "bwd_layer": nmid * ITERS}
+    fs.reset_launch_counts()
+    denos, losses = [], []
+    for k in (1, 2):
+        before = dict(fs.launch_counts())
+        deno, ls = eng.process_frame(frames[k], frames[k - 1], flow_t[k])
+        torch.cuda.synchronize()
+        after = fs.launch_counts()
+        for name, n in want.items():
+            check(after[name] - before[name] == n,
+                  f"process_frame {k}: {name} launched "
+                  f"{after[name] - before[name]} times, expected {n}")
+        ls = ls.cpu().numpy()
+        check(deno.shape == (H, W, 1) and ls.shape == (ITERS,),
+              f"process_frame {k}: shapes {tuple(deno.shape)} {ls.shape}")
+        check(np.isfinite(ls).all() and bool(torch.isfinite(deno).all()),
+              f"process_frame {k}: non-finite output")
+        check(ls[-1] < ls[0], f"process_frame {k}: loss did not fall "
+              f"({ls[0]} -> {ls[-1]})")
+        denos.append(deno.cpu().numpy())
+        losses.append(ls)
+    launches = fs.launch_counts()
+
+    # (c) the same two frames through the plain module's autograd in f32,
+    # with the same optimizer
+    ref = copy.deepcopy(model).to(dev)
+    tx = torch_adam(5e-5, 1e-5)
+    flat = JaxRavel(ref)
+    state = tx.init(flat.ravel())
+    ref_denos, ref_losses = [], []
+    for k in (1, 2):
+        mask, target = mask_and_target(k)
+        ls = []
+        ref.train()
+        for _ in range(ITERS):
+            loss = (mask * ref(frames[k][None])[0] - target).abs().sum()
+            ref.zero_grad(set_to_none=True)
+            loss.backward()
+            upd, state = tx.update(flat.ravel(grads=True), state,
+                                   flat.ravel())
+            flat.add(upd)
+            ls.append(loss.detach())
+        ref.eval()
+        with torch.no_grad():
+            ref_denos.append(ref(frames[k][None])[0].cpu().numpy())
+        ref_losses.append(torch.stack(ls).cpu().numpy())
+    worst_loss, worst_psnr = 0.0, 0.0
+    for i, k in enumerate((1, 2)):
+        dls = float(np.abs(losses[i] / ref_losses[i] - 1).max())
+        pk, pr = psnr(clean[k], denos[i]), psnr(clean[k], ref_denos[i])
+        pn = psnr(clean[k], noisy[k])
+        print(f"training frame {k}: loss {losses[i][0]:.2f} -> "
+              f"{losses[i][-1]:.2f} (f32 module {ref_losses[i][0]:.2f} -> "
+              f"{ref_losses[i][-1]:.2f}, worst rel {dls:.3e}); psnr noisy "
+              f"{pn:.4f} kernels {pk:.4f} f32 module {pr:.4f} dB", flush=True)
+        check(pk - pn > MIN_GAIN_DB, f"frame {k}: denoising gain {pk - pn} dB")
+        worst_loss = max(worst_loss, dls)
+        worst_psnr = max(worst_psnr, abs(pk - pr))
+        out[f"frame_{k}"] = {"loss_first": float(losses[i][0]),
+                             "loss_last": float(losses[i][-1]),
+                             "psnr_noisy": pn, "psnr": pk, "psnr_f32": pr}
+    check(worst_loss <= TRAIN_LOSS_RTOL,
+          f"losses off the f32 module's by {worst_loss}")
+    check(worst_psnr <= TRAIN_PSNR_TOL,
+          f"psnr off the f32 module's by {worst_psnr} dB")
+    out["worst_loss_rel_err"], out["worst_psnr_diff_db"] = worst_loss, worst_psnr
+    del ref
+    torch.cuda.empty_cache()
+
+    # (d) where a fine-tuned frame's time goes
+    torch.cuda.reset_peak_memory_stats()
+    prof = profile_call(
+        torch, lambda: eng.process_frame(frames[2], frames[1], flow_t[2]),
+        iters=3, top=14)
+    deno_ms = profile_call(torch, lambda: eng.denoise_only(frames[2]),
+                           iters=5)["ms"]
+    prof["iters"] = ITERS
+    prof["ms_per_iter"] = (prof["ms"] - deno_ms) / ITERS
+    prof["frames_per_s"] = 1e3 / prof["ms"]
+    prof["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["process_frame"] = prof
+    print("training process_frame: " + json.dumps(prof), flush=True)
+    return launches, out
 
 
 def serving_phase(torch, fs, psnr):
@@ -303,8 +698,8 @@ def serving_phase(torch, fs, psnr):
                      NMID * B, f"{impl} perframe"),
              f"{impl} denoise_batch perframe")
     launches = fs.launch_counts()
-    for k, n in launches.items():
-        check(n > 0, f"{k} was not launched on the main path")
+    for k in kname.values():
+        check(launches[k] > 0, f"{k} was not launched on the serving path")
 
     timings = {}
     for impl, eng in engines.items():
@@ -316,7 +711,7 @@ def serving_phase(torch, fs, psnr):
                                              frames=frames)
             print(f"serving {impl}/{what}: "
                   + json.dumps(timings[f"{impl}/{what}"]), flush=True)
-    return launches, timings
+    return launches, timings, variables, model
 
 
 def main():
@@ -347,31 +742,53 @@ def main():
               flush=True)
 
         t0 = time.perf_counter()
-        report = _build.build("fused_stack")
-        print(f"build: fused_stack.cu in {time.perf_counter() - t0:.1f} s",
-              flush=True)
-        for line in report.splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
-                print("  ptxas: " + line.strip(), flush=True)
+        reports = _build.build_all()
+        print(f"build: {', '.join(n + '.cu' for n in reports)} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        for name, report in reports.items():
+            for entry, spill, regs in re.findall(
+                    r"Compiling entry function '(\w+)'.*\n\s*(.*spill loads)"
+                    r"\n.*Used (\d+) registers", report):
+                print(f"  ptxas {name}: {entry} {regs} registers, {spill}",
+                      flush=True)
 
         rows = kernel_phase(torch, F, fs, cuda_time_ms)
-        launches, timings = serving_phase(torch, fs, psnr)
+        rows.update(train_kernel_phase(torch, F, fs, cuda_time_ms))
+        serve_launches, timings, variables, model = serving_phase(
+            torch, fs, psnr)
+        train_launches, training = training_phase(torch, fs, psnr, variables,
+                                                  model)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
 
+    # each path ran with the counts set to 0 just before it and read just
+    # after; a kernel must have been launched on every path it belongs to
+    paths = {"fwd_layer": ("serving", "training"),
+             "fwd_layer_eval": ("serving",),
+             "fwd_layer_train": ("training",), "bwd_layer": ("training",)}
+    by_path = {"serving": serve_launches, "training": train_launches}
+    for name, on in paths.items():
+        for path in on:
+            if by_path[path][name] <= 0:
+                print(f"chip_smoke: FAIL: {name} was not launched on the "
+                      f"{path} path", file=sys.stderr)
+                return 1
     kernels = []
     for name, cfgs in rows.items():
-        main_row = cfgs[0]  # B=1 bf16: the shape denoise_only gives it
+        main_row = cfgs[0]  # B=1 bf16: the shape the main paths give it
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": launches[name],
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name],
+            "launches": sum(by_path[p][name] for p in paths[name]),
+            "launches_by_path": {p: by_path[p][name] for p in paths[name]},
             "max_abs_err": main_row["max_abs_err"], "ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"], "configs": cfgs})
-    print(json.dumps({"kernels": kernels, "serving": timings}))
+    print(json.dumps({"kernels": kernels, "serving": timings,
+                      "training": training}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

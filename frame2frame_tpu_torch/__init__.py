@@ -2,15 +2,18 @@
 NVIDIA Hopper.
 
 It imports torch, numpy and the standard library only; never JAX, flax or
-``frame2frame_tpu``. Ported so far: the DnCNN serving path.
+``frame2frame_tpu``. Ported so far: the DnCNN serving path and the online
+fine-tune.
 
-- models:  DnCNN module + weight converters, msgpack checkpoint reader, the
-           fused eval forward (``fused_apply``)
-- ops:     hand-written CUDA kernels with their plain PyTorch versions
-           (``fused_stack``), and their build (``_build``)
-- train:   ``OnlineDenoiser`` serving entry points (``denoise_only``,
-           ``denoise_batch``)
+- models:  DnCNN module + weight and optimizer-state converters, msgpack
+           checkpoint reader, the fused eval and training forwards
+           (``fused_apply``)
+- ops:     hand-written CUDA kernels with their plain PyTorch versions and
+           the differentiable mid stack (``fused_stack``), their build
+           (``_build``), flow warping and occlusion masks (``warp``)
+- train:   ``OnlineDenoiser`` (``process_frame``, ``denoise_only``,
+           ``denoise_batch``), ``torch_adam``
 - utils:   device resolution, PSNR, CUDA-event timing
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

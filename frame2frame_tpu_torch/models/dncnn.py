@@ -4,20 +4,26 @@ Counterpart of ``frame2frame_tpu/models/dncnn.py``: Conv3x3(64, no bias) +
 ReLU, (L-2) x [Conv3x3(64, no bias) + BatchNorm + ReLU], Conv3x3(C, no bias).
 Submodules carry the Flax names ``conv_in``, ``conv_{i}``, ``bn_{i}`` and
 ``conv_out``, so a JAX variable tree maps onto the module name for name
-(``from_jax_variables`` / ``to_jax_variables``).
+(``from_jax_variables`` / ``to_jax_variables``), and the flat optimizer state
+of ``train.online.torch_adam`` crosses over in the JAX package's
+``ravel_pytree`` order (``opt_state_from_jax`` / ``opt_state_to_jax``).
 
 Two output conventions, as in the JAX model:
 - ``residual=False``: returns the predicted noise;
 - ``residual=True``: returns the denoised image ``x - noise``.
 
 ``forward`` is the plain module graph; frames are NHWC ``(B, H, W, C)`` at
-the interface, as in the JAX package.
+the interface, as in the JAX package. In training mode BatchNorm follows the
+JAX package, not ``nn.BatchNorm2d``: it normalises with the batch's biased
+variance and also stores that biased variance in the running statistics
+(``nn.BatchNorm2d`` would store the unbiased one).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -49,9 +55,22 @@ class DnCNN(nn.Module):
         h = torch.relu(self.conv_in(x.permute(0, 3, 1, 2)))
         for i in range(self.nmid):
             conv, bn = self.mid(i)
-            h = torch.relu(bn(conv(h)))
+            h = torch.relu(self._bn_train(bn, conv(h)) if self.training
+                           else bn(conv(h)))
         noise = self.conv_out(h).permute(0, 2, 3, 1)
         return x - noise if self.residual else noise
+
+    @staticmethod
+    def _bn_train(bn, z):
+        """Batch-stat BatchNorm of NCHW ``z``; updates ``bn``'s running
+        statistics in place with the biased batch variance."""
+        with torch.no_grad():
+            var, mean = torch.var_mean(z, dim=(0, 2, 3), unbiased=False)
+            keep = 1.0 - bn.momentum
+            bn.running_mean.mul_(keep).add_(mean, alpha=bn.momentum)
+            bn.running_var.mul_(keep).add_(var, alpha=bn.momentum)
+        return F.batch_norm(z, None, None, bn.weight, bn.bias, training=True,
+                            eps=bn.eps)
 
 
 def _hwio(w):
@@ -112,6 +131,77 @@ def to_jax_variables(model):
         stats[f"bn_{i}"] = {"mean": np32(bn.running_mean),
                             "var": np32(bn.running_var)}
     return {"params": params, "batch_stats": stats}
+
+
+def param_leaves(model):
+    """The model's parameters as (name, parameter) pairs in the order
+    ``jax.flatten_util.ravel_pytree`` gives the JAX params: sorted names
+    (``bn_0``, ``bn_1``, ``bn_10``, ..., ``conv_0``, ..., ``conv_in``,
+    ``conv_out``), ``bias`` before ``scale`` within a BatchNorm."""
+    bns = sorted(f"bn_{i}" for i in range(model.nmid))
+    convs = sorted([f"conv_{i}" for i in range(model.nmid)]
+                   + ["conv_in", "conv_out"])
+    leaves = []
+    for name in bns:
+        bn = getattr(model, name)
+        leaves += [(f"{name}.bias", bn.bias), (f"{name}.scale", bn.weight)]
+    return leaves + [(f"{name}.kernel", getattr(model, name).weight)
+                     for name in convs]
+
+
+class JaxRavel:
+    """``model``'s parameters as one f32 vector in the JAX package's
+    ``ravel_pytree`` order (``param_leaves``; a conv kernel, OIHW here,
+    ravels HWIO), and back.
+
+    The order is applied by one gather through an index built once, so a
+    fine-tune iteration costs a few launches here, not a few per parameter.
+    The index lives on the device the parameters had at construction."""
+
+    def __init__(self, model):
+        self.params = [p for _, p in param_leaves(model)]
+        self.sizes = [p.numel() for p in self.params]
+        index, off = [], 0
+        for p in self.params:
+            i = torch.arange(off, off + p.numel(), device=p.device).view(p.shape)
+            index.append((i.permute(2, 3, 1, 0) if p.dim() == 4 else i)
+                         .reshape(-1))
+            off += p.numel()
+        self._to_jax = torch.cat(index)
+        self._from_jax = torch.empty_like(self._to_jax)
+        self._from_jax[self._to_jax] = torch.arange(off, device=index[0].device)
+
+    def ravel(self, grads=False):
+        """The parameters, or their ``.grad``, raveled."""
+        leaves = [(p.grad if grads else p.detach()).reshape(-1)
+                  for p in self.params]
+        return torch.cat(leaves)[self._to_jax]
+
+    @torch.no_grad()
+    def add(self, flat):
+        """``param += update`` in place for every parameter, ``flat`` in
+        the order of ``ravel``."""
+        parts = flat[self._from_jax].split(self.sizes)
+        torch._foreach_add_(self.params, [u.view_as(p) for u, p
+                                          in zip(parts, self.params)])
+
+
+def opt_state_from_jax(state, device="cpu"):
+    """The JAX ``torch_adam`` state ``{"count", "m", "v"}`` (numpy or JAX
+    leaves) as the port's: ``count`` a Python int, ``m`` and ``v`` f32
+    tensors on ``device`` in the same ``ravel_pytree`` order."""
+    def vec(v):
+        return torch.from_numpy(np.array(v, np.float32)).to(device)
+
+    return {"count": int(np.asarray(state["count"])),
+            "m": vec(state["m"]), "v": vec(state["v"])}
+
+
+def opt_state_to_jax(state):
+    """Inverse of ``opt_state_from_jax``: numpy leaves, ``count`` int32."""
+    return {"count": np.asarray(state["count"], np.int32),
+            "m": state["m"].detach().cpu().numpy().copy(),
+            "v": state["v"].detach().cpu().numpy().copy()}
 
 
 def import_torch_state_dict(state_dict, num_layers=17):

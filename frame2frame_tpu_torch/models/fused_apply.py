@@ -1,10 +1,12 @@
-"""Eval-mode DnCNN forward on the fused mid-layer kernels (the serving path).
+"""DnCNN forwards on the fused mid-layer kernels: eval mode (the serving
+path) and training mode with batch-stat updates (the online fine-tune).
 
 Counterpart of ``frame2frame_tpu/models/fused_apply.py``'s
-``fused_eval_apply`` and ``fused_eval_apply_batch``. The 15 mid layers of
-DnCNN-17 run as ``ops/fused_stack`` kernels; the C<->64 end convs stay plain
-``F.conv2d`` (XLA computed them in the JAX package), with bf16 operands and a
-bf16 result on the bf16 chain.
+``fused_train_apply``, ``fused_eval_apply`` and ``fused_eval_apply_batch``.
+The 15 mid layers of DnCNN-17 run as ``ops/fused_stack`` kernels; the C<->64
+end convs stay library convolutions (XLA computed them in the JAX package),
+with bf16 operands and a bf16 result on the bf16 chain, and a weight gradient
+accumulated and delivered in f32 (``_EndConvBf16``).
 
 Two eval implementations (``eval_impl``):
 - ``"affine"`` (default): activations chain as raw conv outputs; each
@@ -25,12 +27,14 @@ import torch.nn.functional as F
 
 from ..ops.fused_stack import (
     _affine_from_stats,
+    fused_mid_stack,
     fwd_layer,
     fwd_layer_eval,
     kernel_weights,
 )
 
 EVAL_IMPLS = ("affine", "act-bf16", "act-f32")
+BN_MOMENTUM = 0.9  # flax convention: new = m * old + (1 - m) * batch
 
 
 def _eval_impl(eval_impl=None):
@@ -46,12 +50,42 @@ def _eval_chain_dtype(eval_impl=None):
     return torch.float32 if eval_impl == "act-f32" else torch.bfloat16
 
 
+class _EndConvBf16(torch.autograd.Function):
+    """3x3 SAME conv of NCHW ``x`` with f32 master weights ``w`` (OIHW) on a
+    bf16 data path, as ``conv3x3_packed_bf16`` of the JAX package: forward
+    and dX run on bf16 operands with bf16 results, the cotangent is cast to
+    bf16, and dW is accumulated and returned in f32 from the bf16 operands.
+    Autograd of a bf16 ``F.conv2d`` would round dW to bf16 instead."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        x16, w16 = x.to(torch.bfloat16), w.to(torch.bfloat16)
+        ctx.save_for_backward(x16, w16)
+        return F.conv2d(x16, w16, padding=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        x16, w16 = ctx.saved_tensors
+        g16 = g.to(torch.bfloat16)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.nn.grad.conv2d_input(x16.shape, w16, g16, padding=1)
+        if ctx.needs_input_grad[1]:
+            dw = torch.nn.grad.conv2d_weight(x16.float(), w16.shape,
+                                             g16.float(), padding=1)
+        return dx, dw
+
+
 def _make_end_conv(store_dtype):
     """The C<->64 boundary convs on NHWC tensors: operands and result in
-    ``store_dtype``."""
+    ``store_dtype``. Shared by the train and eval forwards so their
+    semantics cannot drift."""
     def end_conv(x, w):
-        out = F.conv2d(x.to(store_dtype).permute(0, 3, 1, 2),
-                       w.to(store_dtype), padding=1)
+        x = x.permute(0, 3, 1, 2)
+        if store_dtype == torch.bfloat16:
+            out = _EndConvBf16.apply(x, w)
+        else:
+            out = F.conv2d(x.to(store_dtype), w.to(store_dtype), padding=1)
         return out.permute(0, 2, 3, 1).contiguous()
     return end_conv
 
@@ -98,6 +132,37 @@ def _eval_forward(model, x, store_dtype, eval_impl):
     else:
         a_out = _affine_mid_stack(model, a1, store_dtype)
     noise = end_conv(a_out, model.conv_out.weight).float()
+    return x - noise if model.residual else noise
+
+
+def fused_train_apply(model, x, store_dtype=torch.bfloat16,
+                      mid_stack=fused_mid_stack):
+    """Training-mode DnCNN forward with batch statistics.
+
+    x: (B, H, W, C) f32 (one frame in the online fine-tune). Returns the
+    model's output convention (noise, or x - noise when ``model.residual``),
+    differentiable in the model's parameters. BatchNorm normalises with the
+    batch's biased variance, and the running statistics are updated in
+    place, without gradient, with that same biased variance
+    (``new = 0.9 * old + 0.1 * batch``, the JAX package's convention;
+    ``nn.BatchNorm2d`` would store the unbiased one).
+    ``store_dtype``: bf16 in production, f32 in the strict mode of the
+    tests. ``mid_stack``: ``ops.fused_stack.fused_mid_stack`` or its plain
+    twin."""
+    end_conv = _make_end_conv(store_dtype)
+    mids = [model.mid(i) for i in range(model.nmid)]
+    a1 = torch.relu(end_conv(x, model.conv_in.weight))
+    ws = torch.stack([conv.weight for conv, _ in mids]).permute(0, 3, 4, 2, 1)
+    gammas = torch.stack([bn.weight for _, bn in mids])
+    betas = torch.stack([bn.bias for _, bn in mids])
+    a_out, means, vars_ = mid_stack(ws, gammas, betas, a1, store_dtype)
+    noise = end_conv(a_out, model.conv_out.weight).float()
+    with torch.no_grad():
+        for key, batch in (("running_mean", means), ("running_var", vars_)):
+            bufs = [getattr(bn, key) for _, bn in mids]
+            torch._foreach_mul_(bufs, BN_MOMENTUM)
+            torch._foreach_add_(bufs, list(batch.unbind(0)),
+                                alpha=1 - BN_MOMENTUM)
     return x - noise if model.residual else noise
 
 

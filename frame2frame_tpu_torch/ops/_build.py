@@ -3,8 +3,9 @@
 Each ``.cu`` file compiles on its own with ``nvcc`` into a shared library with
 a plain C interface, loaded with ``ctypes``. PyTorch's headers are kept out
 of the sources so a build takes seconds, not minutes. Libraries land in
-``build/`` at the repository root, named by a hash of the source, so an
-edited source is rebuilt and an unchanged one is loaded as it is.
+``build/`` at the repository root, named by a hash of the source and of the
+headers beside it (``csrc/*.cuh``), so an edited source is rebuilt and an
+unchanged one is loaded as it is.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -44,6 +46,8 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}.{digest[:12]}.so"
 
@@ -63,6 +67,19 @@ def build(name: str) -> str:
         raise RuntimeError(f"nvcc failed on {name}.cu:\n{res.stderr}")
     os.replace(tmp, out)
     return res.stdout + res.stderr
+
+
+def sources() -> list[str]:
+    """Names of the CUDA sources, ``csrc/<name>.cu``."""
+    return sorted(f.stem for f in CSRC.glob("*.cu"))
+
+
+def build_all() -> dict[str, str]:
+    """Compile every source at once, one ``nvcc`` process each; returns the
+    compiler's report by source name."""
+    names = sources()
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(build, names)))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,17 +1,25 @@
-"""The DnCNN 64->64 mid layers of the serving path: two CUDA kernels for
-Hopper (``csrc/fused_stack.cu``) and their plain PyTorch versions.
+"""The DnCNN 64->64 mid layers: four CUDA kernels for Hopper
+(``csrc/fused_stack.cu``, ``csrc/fused_stack_bwd.cu``), their plain PyTorch
+versions, and the differentiable training-mode mid stack built on them.
 
 Counterparts of ``frame2frame_tpu/ops/fused_stack.py``:
 
 - ``fwd_layer`` <- ``fwd_layer`` with ``emit_stats=False`` (the eval "affine"
   route): ``z = conv3x3_SAME(relu(s * z_prev + b))``, chained on raw conv
-  outputs. The batch-stat and ``emit_act`` outputs of the training forward
-  are not ported here.
+  outputs.
+- ``fwd_layer_train`` <- ``fwd_layer`` with ``emit_stats=True`` (the training
+  forward): the same ``z`` and the BN batch sums ``(sum z, sum z^2)`` per
+  channel, taken from the f32 accumulator before ``z`` is rounded.
 - ``fwd_layer_eval`` <- ``fwd_layer_eval`` (the eval "act" route):
   ``a = relu(s * conv3x3_SAME(a_prev, w) + b)``, chained post-activation.
   The TPU kernel folds the BN scale into its weights; the port applies it
   to the f32 accumulator, since rounding ``w * s`` to bf16 loses accuracy
   (``csrc/fused_stack.cu``).
+- ``bwd_layer`` <- ``bwd_layer``: one layer's backward through ReLU,
+  training-mode BN and the conv: ``da_prev`` (dX), ``dW`` in f32, and the
+  previous layer's BN-backward sums.
+- ``fused_mid_stack`` <- ``fused_mid_stack`` (``_fused_fwd`` / ``_fused_bwd``):
+  (conv3x3 + BatchNorm(train) + ReLU)^L as a ``torch.autograd.Function``.
 
 Activations are NHWC ``(B, H, W, 64)``, contiguous, bf16 or f32. The TPU
 pair-packed flat layout is not carried over: a batch is the batch
@@ -19,6 +27,17 @@ dimension, and SAME padding per image isolates its frames. Zero padding
 applies to the activation after the affine and ReLU, as the TPU kernel masks
 the activation at pad positions; padding ``z_prev`` first would leak
 ``relu(b)`` into the border.
+
+The TPU forward can also store each layer's operand for the backward
+(``emit_act``). The port does not: ``bwd_layer`` rebuilds
+``a_prev = relu(s_prev * z_prev + b_prev)`` from ``z_prev``, which it reads
+anyway for the BN-backward sums, so a stored operand would add one tensor
+written and one read per layer (1 GB a step at 540p) and save only an FMA and
+a max per element in a kernel that waits on memory.
+
+Every affine whose sign decides a ReLU mask is a rounded product plus a
+rounded sum (``z * s + b`` in PyTorch, ``affine()`` in the kernels), so the
+forward and the backward agree on every pixel, on either device.
 
 A wrapper given a CPU tensor computes the plain version; given a CUDA tensor
 it launches the kernel or raises. Each wrapper counts its launches in
@@ -98,6 +117,8 @@ def _lib():
     for fn in (lib.f2f_fwd_layer, lib.f2f_fwd_layer_eval):
         fn.restype = ci
         fn.argtypes = [vp, ci, vp, vp, vp, vp, ci, ci, ci, vp]
+    lib.f2f_fwd_layer_train.restype = ci
+    lib.f2f_fwd_layer_train.argtypes = [vp, ci] + [vp] * 6 + [ci] * 4 + [vp]
     lib.f2f_error_string.restype = ctypes.c_char_p
     lib.f2f_error_string.argtypes = [ci]
     return lib
@@ -106,10 +127,7 @@ def _lib():
 def _launch(name, x, w, s, b):
     """Run kernel ``f2f_<name>`` on CUDA tensors on the current device and
     return its output, in x's dtype. Raises if the launch is refused."""
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for {x.device}")
-    if x.device.index != torch.cuda.current_device():
-        raise ValueError(f"{name}: {x.device} is not the current CUDA device")
+    _on_current_cuda(name, x)
     lib = _lib()
     wk = kernel_weights(w)
     out = torch.empty_like(x)
@@ -118,9 +136,7 @@ def _launch(name, x, w, s, b):
         x.data_ptr(), int(x.dtype == torch.float32), wk.data_ptr(),
         s.data_ptr(), b.data_ptr(), out.data_ptr(), B, H, W,
         torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        msg = lib.f2f_error_string(rc).decode()
-        raise RuntimeError(f"{name} launch failed: {msg} (cudaError {rc})")
+    _raise_on(lib, name, rc)
     return out
 
 
@@ -153,9 +169,171 @@ def fwd_layer_eval(a_prev, w, s, b):
     return out
 
 
-fwd_layer.launches = 0
-fwd_layer_eval.launches = 0
-KERNELS = (fwd_layer, fwd_layer_eval)
+def _round_operand(x, mma_bf16):
+    """A dot operand in f32, rounded to bf16 first if ``mma_bf16``."""
+    x = x.float()
+    return x.bfloat16().float() if mma_bf16 else x
+
+
+def fwd_layer_train_plain(z_prev, w, s, b, mma_bf16=False):
+    """Plain version of ``fwd_layer_train``: (z, stats (2, 64) f32).
+
+    f32 arithmetic with the rounding points of the TPU kernel run in
+    interpret mode: the weights in the chain's dtype, z stored in the
+    chain's dtype, the sums from the unrounded accumulator. ``mma_bf16``
+    also rounds both dot operands to bf16, as the CUDA kernel's matrix unit
+    takes them on either chain."""
+    dt = z_prev.dtype
+    a = torch.relu(z_prev.float() * s.float() + b.float())
+    acc = _conv_f32(_round_operand(a, mma_bf16),
+                    _round_operand(w.to(dt), mma_bf16))
+    stats = torch.stack([acc.sum((0, 1, 2)), (acc * acc).sum((0, 1, 2))])
+    return acc.to(dt).contiguous(), stats
+
+
+# rows of ``vecs`` (8, 64) f32, as frame2frame_tpu's ``_bwd_kernel`` takes
+# them: the affine whose sign is layer i's ReLU mask (A = gamma_i * rstd_i,
+# b_i), dz's other two coefficients, the previous layer's affine, and its
+# normalisation (rstd_prev, -mean_prev * rstd_prev)
+V_A, V_BI, V_B, V_C, V_SP, V_BP, V_RSTDP, V_NMRP = range(8)
+
+
+def bwd_layer_plain(g, z_i, z_prev, w, vecs, first_layer=False,
+                    mma_bf16=False):
+    """Plain version of ``bwd_layer``: (da_prev, dW f32 HWIO, stats_prev).
+    Rounding points and ``mma_bf16`` as in ``fwd_layer_train_plain``; with
+    ``mma_bf16`` the operands dz, a_prev and w are rounded to bf16."""
+    dt = g.dtype
+    v = vecs.float()
+    zi, zp = z_i.float(), z_prev.float()
+    gt = g.float() * (zi * v[V_A] + v[V_BI] > 0)
+    dz = _round_operand(v[V_A] * gt + v[V_B] * zi + v[V_C], mma_bf16)
+    wr = _round_operand(w.to(dt), mma_bf16)
+    da = _conv_f32(dz, wr.flip(0, 1).transpose(2, 3))
+    yp = zp * v[V_SP] + v[V_BP]
+    a_prev = _round_operand(torch.relu(yp), mma_bf16)
+    dw = torch.nn.grad.conv2d_weight(
+        a_prev.permute(0, 3, 1, 2), (C, C, 3, 3), dz.permute(0, 3, 1, 2),
+        padding=1).permute(2, 3, 1, 0).contiguous()
+    if first_layer:
+        stats = torch.zeros(2, C, dtype=torch.float32, device=g.device)
+    else:
+        gp = da * (yp > 0)
+        zhat = zp * v[V_RSTDP] + v[V_NMRP]
+        stats = torch.stack([gp.sum((0, 1, 2)), (gp * zhat).sum((0, 1, 2))])
+    return da.to(dt).contiguous(), dw, stats
+
+
+@functools.cache
+def _lib_bwd():
+    lib = load("fused_stack_bwd")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.f2f_bwd_layer.restype = ci
+    lib.f2f_bwd_layer.argtypes = ([vp, vp, vp, ci, vp, vp, ci]
+                                  + [vp] * 6 + [ci] * 4 + [vp])
+    lib.f2f_error_string.restype = ctypes.c_char_p
+    lib.f2f_error_string.argtypes = [ci]
+    return lib
+
+
+def _raise_on(lib, name, rc):
+    if rc != 0:
+        msg = lib.f2f_error_string(rc).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} (cudaError {rc})")
+
+
+@functools.cache
+def _partial_rows(index):
+    """Rows of per-block partial sums a kernel may write on CUDA device
+    ``index``: at most two of its persistent blocks fit a multiprocessor."""
+    return 2 * torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _on_current_cuda(name, x):
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {x.device}")
+    if x.device.index != torch.cuda.current_device():
+        raise ValueError(f"{name}: {x.device} is not the current CUDA device")
+
+
+def fwd_layer_train(z_prev, w, s, b):
+    """One training mid layer: ``fwd_layer`` and the BN batch sums.
+
+    Returns (z in z_prev's dtype, stats (2, 64) f32 = per-channel sum z and
+    sum z^2 over all B*H*W pixels, from the f32 accumulator). The sums are
+    reduced in a fixed order: the same inputs give the same bits."""
+    s, b = _checked("fwd_layer_train", z_prev, w, s, b)
+    if z_prev.device.type == "cpu":
+        return fwd_layer_train_plain(z_prev, w, s, b)
+    _on_current_cuda("fwd_layer_train", z_prev)
+    lib = _lib()
+    wk = kernel_weights(w)
+    rows = _partial_rows(z_prev.device.index)
+    z = torch.empty_like(z_prev)
+    stats = torch.empty(2, C, dtype=torch.float32, device=z_prev.device)
+    partial = torch.empty(rows, 2, C, dtype=torch.float32,
+                          device=z_prev.device)
+    B, H, W, _ = z_prev.shape
+    rc = lib.f2f_fwd_layer_train(
+        z_prev.data_ptr(), int(z_prev.dtype == torch.float32), wk.data_ptr(),
+        s.data_ptr(), b.data_ptr(), z.data_ptr(), stats.data_ptr(),
+        partial.data_ptr(), rows, B, H, W,
+        torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, "fwd_layer_train", rc)
+    fwd_layer_train.launches += 1
+    return z, stats
+
+
+def bwd_layer(g, z_i, z_prev, w, vecs, first_layer=False):
+    """One training mid layer's backward.
+
+    g: cotangent of the layer's activation a_i, (B, H, W, 64) bf16 or f32;
+    z_i, z_prev: stored conv outputs of this layer and the one before (the
+    stack input when ``first_layer``), same shape and dtype; w: (3, 3, 64,
+    64) HWIO; vecs: (8, 64) f32, rows ``V_A`` .. ``V_NMRP``.
+
+    Returns (da_prev in g's dtype, dW (3, 3, 64, 64) f32, stats_prev (2, 64)
+    f32 = sum gp and sum gp * zhat_prev with gp = da_prev * [a_prev > 0],
+    zeros when ``first_layer``). One call counts as one launch; it runs the
+    dz + dX kernel, the dW kernel and their finishing sums."""
+    name = "bwd_layer"
+    _checked(name, g, w, vecs[0], vecs[1])
+    for x in (z_i, z_prev):
+        if (x.shape != g.shape or x.dtype != g.dtype or x.device != g.device
+                or not x.is_contiguous() or x.data_ptr() % 16):
+            raise ValueError(f"{name}: z_i and z_prev must match g's shape, "
+                             "dtype, device and layout")
+    if (vecs.shape != (8, C) or vecs.dtype != torch.float32
+            or vecs.device != g.device):
+        raise ValueError(f"{name}: vecs must be (8, {C}) f32 on {g.device}")
+    vecs = vecs.contiguous()
+    if g.device.type == "cpu":
+        return bwd_layer_plain(g, z_i, z_prev, w, vecs, first_layer)
+    _on_current_cuda(name, g)
+    lib = _lib_bwd()
+    wk = kernel_weights(w)
+    dev = g.device
+    rows = _partial_rows(dev.index)
+    da = torch.empty_like(g)
+    dz = torch.empty(g.shape, dtype=torch.bfloat16, device=dev)
+    dw = torch.empty(3, 3, C, C, dtype=torch.float32, device=dev)
+    stats = (torch.zeros if first_layer else torch.empty)(
+        2, C, dtype=torch.float32, device=dev)
+    partial_stats = torch.empty(rows, 2, C, dtype=torch.float32, device=dev)
+    partial_dw = torch.empty(rows, 9, C, C, dtype=torch.float32, device=dev)
+    B, H, W, _ = g.shape
+    rc = lib.f2f_bwd_layer(
+        g.data_ptr(), z_i.data_ptr(), z_prev.data_ptr(),
+        int(g.dtype == torch.float32), wk.data_ptr(), vecs.data_ptr(),
+        int(bool(first_layer)), da.data_ptr(), dz.data_ptr(), dw.data_ptr(),
+        stats.data_ptr(), partial_stats.data_ptr(), partial_dw.data_ptr(),
+        rows, B, H, W, torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, name, rc)
+    bwd_layer.launches += 1
+    return da, dw, stats
+
+
+KERNELS = (fwd_layer, fwd_layer_train, fwd_layer_eval, bwd_layer)
 
 
 def reset_launch_counts():
@@ -163,5 +341,121 @@ def reset_launch_counts():
         k.launches = 0
 
 
+reset_launch_counts()
+
+
 def launch_counts():
     return {k.__name__: k.launches for k in KERNELS}
+
+
+# ---------------------------------------------------------------------------
+# the differentiable mid stack
+
+
+class _FusedMidStack(torch.autograd.Function):
+    """(conv3x3 + BatchNorm(train) + ReLU)^L over ``fwd`` and ``bwd``, the
+    layer functions (the kernel wrappers, or their plain versions).
+
+    Between two layer calls stand only a few (64,)-sized ops, each a launch
+    that costs the host more than the device: whatever does not depend on the
+    neighbouring layer's result is computed for all layers at once."""
+
+    @staticmethod
+    def forward(ctx, ws, gammas, betas, a1, store_dtype, fwd, bwd):
+        L = ws.shape[0]
+        B, H, W, _ = a1.shape
+        count = B * H * W
+        wk = kernel_weights(ws)
+        a_in = a1.to(store_dtype).contiguous()
+        cur = a_in
+        s = torch.ones(C, dtype=torch.float32, device=a1.device)
+        b = torch.zeros_like(s)
+        zs, ss, bs, moments = [], [s], [b], []
+        for i in range(L):
+            cur, stats = fwd(cur, wk[i], s, b)
+            mom = stats / count  # (E[z], E[z^2])
+            var = torch.addcmul(mom[1], mom[0], mom[0], value=-1.0)
+            s = gammas[i] * torch.rsqrt(var + EPS)
+            b = torch.addcmul(betas[i], mom[0], s, value=-1.0)
+            zs.append(cur)
+            ss.append(s)
+            bs.append(b)
+            moments.append(mom)
+        # the last BN affine + ReLU in f32, outside the kernels
+        a_out = torch.relu(cur.float() * s + b)
+        moments = torch.stack(moments)
+        means = moments[:, 0].contiguous()
+        vars_ = torch.addcmul(moments[:, 1], means, means, value=-1.0)
+        ctx.save_for_backward(wk, gammas, a_in, means, vars_,
+                              torch.stack(ss), torch.stack(bs), *zs)
+        ctx.store_dtype, ctx.bwd, ctx.count = store_dtype, bwd, count
+        ctx.a1_dtype = a1.dtype
+        ctx.mark_non_differentiable(means, vars_)
+        return a_out, means, vars_
+
+    @staticmethod
+    def backward(ctx, da_out, _dm, _dv):
+        wk, gammas, a_in, means, vars_, ss, bs, *zs = ctx.saved_tensors
+        L, count = len(zs), ctx.count
+        rstd = torch.rsqrt(vars_ + EPS)
+        nmr = -means * rstd
+        # cotangent of z_L through the last BN affine + ReLU, in plain ops;
+        # the mask is the forward's expression on the stored z_L
+        g = da_out.to(ctx.store_dtype).contiguous()
+        zl = zs[-1].float()
+        gt = g.float() * (zl * ss[L] + bs[L] > 0)
+        dbeta = gt.sum((0, 1, 2))
+        dgamma = (gt * (zl * rstd[-1] + nmr[-1])).sum((0, 1, 2))
+        del zl, gt
+
+        # dz_i = A_i gt + B_i z_i + C_i with A_i = gamma_i rstd_i = ss[i + 1],
+        # B_i = k1_i dgamma_i, C_i = k2_i dgamma_i + k3_i dbeta_i: all but
+        # the two sums, which the layer above delivers, is known beforehand
+        k3 = ss[1:] / -count
+        k1 = k3 * rstd
+        k2 = -k1 * means
+        zero = torch.zeros_like(ss[1:])
+        vecs = torch.stack([
+            ss[1:], bs[1:], zero, zero, ss[:-1], bs[:-1],
+            torch.cat([ss[:1], rstd[:-1]]), torch.cat([bs[:1], nmr[:-1]])], 1)
+        dws, dgammas, dbetas = [None] * L, [None] * L, [None] * L
+        for i in range(L - 1, -1, -1):
+            torch.mul(k1[i], dgamma, out=vecs[i, V_B])
+            torch.mul(k2[i], dgamma, out=vecs[i, V_C])
+            vecs[i, V_C].addcmul_(k3[i], dbeta)
+            g, dws[i], stats = ctx.bwd(g, zs[i], zs[i - 1] if i > 0 else a_in,
+                                       wk[i], vecs[i], i == 0)
+            dgammas[i], dbetas[i] = dgamma, dbeta
+            dbeta, dgamma = stats[0], stats[1]
+        return (torch.stack(dws), torch.stack(dgammas), torch.stack(dbetas),
+                g.to(ctx.a1_dtype), None, None, None)
+
+
+def fused_mid_stack(ws, gammas, betas, a1, store_dtype=torch.bfloat16):
+    """(conv3x3 + BatchNorm(train) + ReLU)^L on the mid-layer kernels.
+
+    ws: (L, 3, 3, 64, 64) HWIO f32; gammas, betas: (L, 64) f32; a1: (B, H,
+    W, 64) post-ReLU stack input. Returns (a_out (B, H, W, 64) f32, means
+    (L, 64), vars (L, 64)): biased batch variance ``E[z^2] - mean^2``,
+    eps 1e-5. Activations and cotangents are stored in ``store_dtype``
+    between layers; BN sums, dW, dgamma and dbeta are f32. Differentiable in
+    ws, gammas, betas and a1; means and vars carry no gradient."""
+    return _FusedMidStack.apply(ws, gammas, betas, a1, store_dtype,
+                                fwd_layer_train, bwd_layer)
+
+
+def fused_mid_stack_plain(ws, gammas, betas, a1, store_dtype=torch.bfloat16,
+                          mma_bf16=False, kernel_forward=False):
+    """``fused_mid_stack`` over the layers' plain versions on any device:
+    what ``chip_smoke.py`` holds the kernel route against on the card.
+
+    ``kernel_forward`` keeps ``fwd_layer_train`` for the forward and takes
+    the plain version of the backward only. Both backwards then start from
+    the same stored activations, hence the same ReLU decisions, and differ
+    by arithmetic alone; two forwards that differ by one rounded operand
+    drift apart layer by layer."""
+    fwd = (fwd_layer_train if kernel_forward
+           else functools.partial(fwd_layer_train_plain, mma_bf16=mma_bf16))
+    return _FusedMidStack.apply(
+        ws, gammas, betas, a1, store_dtype, fwd,
+        functools.partial(bwd_layer_plain, mma_bf16=mma_bf16))

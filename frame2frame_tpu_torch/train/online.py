@@ -1,11 +1,17 @@
-"""The serving entry points of the online denoiser.
+"""Online per-frame fine-tuning ("frame2frame" blind denoising) and the
+serving entry points of the online denoiser.
 
-Counterpart of ``frame2frame_tpu/train/online.py``'s ``make_denoise`` (eval
-branch) and ``OnlineDenoiser``'s serving methods ``denoise_only`` and
-``denoise_batch``: eval-mode denoising with the engine's current weights, no
-fine-tune iterations and no flow (blind_denoising.py:229-230 run
-standalone). The fine-tune (``process_frame``) and its optimizer belong to
-the training slice and are not ported yet.
+Counterpart of ``frame2frame_tpu/train/online.py``: ``torch_adam``,
+``make_denoise``, ``make_online_step`` (the body that runs
+``fused_train_apply``, with the end convs and the loss in plain ops) and
+``OnlineDenoiser`` with ``process_frame``, ``denoise_only`` and
+``denoise_batch``. The reference hot loop (blind_denoising.py:187-256) per
+frame: warp the previous noisy frame by the flow and mask occlusions, once;
+``iters`` Adam updates of the DnCNN in training mode on the summed masked L1
+loss; then the eval-mode denoise with the updated weights. PyTorch runs
+eagerly, so the JAX package's ``lax.scan`` is a Python loop here. TV-L1 flow,
+``AsyncFlowSolver`` and ``run_blind_denoising`` are not ported yet: the
+caller hands ``process_frame`` a flow.
 """
 
 from __future__ import annotations
@@ -13,39 +19,130 @@ from __future__ import annotations
 import copy
 import os
 
+import numpy as np
 import torch
 
-from ..models.dncnn import load_jax_variables, to_jax_variables
+from ..models.dncnn import JaxRavel, load_jax_variables, to_jax_variables
 from ..models.fused_apply import (
     _eval_impl,
     can_fuse,
     can_fuse_batch,
     fused_eval_apply,
     fused_eval_apply_batch,
+    fused_train_apply,
 )
+from ..ops.warp import bilinear_warp_with_mask, occlusion_mask
 from ..utils.device import resolve_device
 
 BATCH_ROUTES = ("stacked", "perframe")
 
 
-def make_denoise(model, residual_model=False):
-    """Build ``denoise(x, eval_impl=None) -> deno`` for one (H, W, C) frame,
-    through the fused kernels where the model allows it.
+class torch_adam:
+    """``torch.optim.Adam`` with L2 ``weight_decay`` (decay added to the
+    gradient before the moment updates) over ONE raveled vector, as the JAX
+    package's ``torch_adam``.
 
-    ``residual_model`` says whether the model returns the denoised image
-    (harness convention) or the noise (submodule convention,
-    blind_denoising.py:218 subtracts)."""
-    fused = can_fuse(model)
+    State: ``{"count": int, "m": (N,) f32, "v": (N,) f32}`` with ``m`` and
+    ``v`` in the JAX package's ``ravel_pytree`` order of the parameters
+    (``models.dncnn.JaxRavel``), so that the state crosses over
+    (``models.dncnn.opt_state_from_jax`` / ``opt_state_to_jax``). The bias
+    corrections ``1 - beta ** count`` are taken in f32 and ``eps`` is added
+    outside the square root."""
+
+    def __init__(self, lr, weight_decay=0.0, b1=0.9, b2=0.999, eps=1e-8):
+        self.lr, self.weight_decay = lr, weight_decay
+        self.b1, self.b2, self.eps = b1, b2, eps
+
+    def init(self, params):
+        """Zero state for the raveled parameter vector ``params``."""
+        return {"count": 0, "m": torch.zeros_like(params),
+                "v": torch.zeros_like(params)}
 
     @torch.no_grad()
-    def denoise(x, eval_impl=None):
-        if fused:
-            y = fused_eval_apply(model, x[None], eval_impl=eval_impl)[0]
-        else:
-            y = model(x[None])[0]
-        return y if residual_model else x - y
+    def update(self, grads, state, params=None):
+        """(updates, new_state) for raveled ``grads``; ``params`` is needed
+        when there is weight decay. Add ``updates`` to the parameters."""
+        g = grads
+        if self.weight_decay:
+            g = g + self.weight_decay * params
+        count = state["count"] + 1
+        m = self.b1 * state["m"] + (1 - self.b1) * g
+        v = self.b2 * state["v"] + (1 - self.b2) * (g * g)
+        c = np.float32(count)
+        mhat = m / float(np.float32(1) - np.float32(self.b1) ** c)
+        vhat = v / float(np.float32(1) - np.float32(self.b2) ** c)
+        u = (-self.lr) * (mhat / (torch.sqrt(vhat) + self.eps))
+        return u, {"count": count, "m": m, "v": v}
+
+
+def make_denoise(model, residual_model=False):
+    """Build ``denoise(x, train=False, eval_impl=None) -> deno`` for one
+    (H, W, C) frame, through the fused kernels where the model allows it.
+
+    With ``train=True`` the forward runs in training mode (batch statistics,
+    running statistics updated in place), builds the autograd graph and
+    ignores ``eval_impl``. ``residual_model`` says whether the model returns
+    the denoised image (harness convention) or the noise (submodule
+    convention, blind_denoising.py:218 subtracts)."""
+    fused = can_fuse(model)
+
+    def denoise(x, train=False, eval_impl=None):
+        if train:
+            if fused:
+                y = fused_train_apply(model, x[None])[0]
+            else:
+                model.train()
+                try:
+                    y = model(x[None])[0]
+                finally:
+                    model.eval()
+            return y if residual_model else x - y
+        with torch.no_grad():
+            if fused:
+                y = fused_eval_apply(model, x[None], eval_impl=eval_impl)[0]
+            else:
+                y = model(x[None])[0]
+            return y if residual_model else x - y
 
     return denoise
+
+
+def make_online_step(model, tx, iters=20, residual_model=False):
+    """Build the per-frame program
+
+        step(opt_state, cur, prev, flow, eval_impl=None)
+            -> (opt_state, deno, losses)
+
+    cur/prev: (H, W, C) in [0, 1]; flow: (H, W, 2) mapping cur -> prev
+    coords. The mask and the warped target depend only on prev and flow, so
+    they are built once per frame. ``model``'s parameters and running
+    statistics are updated in place; the optimizer state is returned."""
+    denoise = make_denoise(model, residual_model=residual_model)
+    flat = JaxRavel(model)
+
+    def step(opt_state, cur, prev, flow, eval_impl=None):
+        with torch.no_grad():
+            warped, mask = bilinear_warp_with_mask(prev, flow)
+            mask = occlusion_mask(flow, mask)
+            target = mask * warped
+        losses = []
+        for _ in range(iters):
+            with torch.enable_grad():
+                deno = denoise(cur, train=True)
+                # summed L1 (nn.L1Loss(size_average=False),
+                # blind_denoising.py:47)
+                loss = (mask * deno - target).abs().sum()
+            loss.backward()
+            updates, opt_state = tx.update(flat.ravel(grads=True), opt_state,
+                                           flat.ravel())
+            for p in flat.params:
+                p.grad = None
+            flat.add(updates)
+            losses.append(loss.detach())
+        deno = denoise(cur, train=False, eval_impl=eval_impl)
+        return opt_state, deno, torch.stack(losses)
+
+    return step
 
 
 def _memory_budget(device):
@@ -62,30 +159,47 @@ class OnlineDenoiser:
     ``model``: a ``DnCNN`` giving the architecture and output convention;
     ``variables``: the JAX-layout ``{"params", "batch_stats"}`` tree whose
     weights the engine serves (the caller's model is not modified);
-    ``batch_route``: default ``denoise_batch`` route, "stacked" or
+    ``lr``, ``weight_decay``, ``iters``: the fine-tune's Adam and its updates
+    per frame; ``batch_route``: default ``denoise_batch`` route, "stacked" or
     "perframe"; ``eval_impl``: "affine" (default), "act-bf16" or "act-f32";
     ``device``: None means the CUDA card, and raises where there is none.
+    The optimizer state ``opt_state`` persists across frames.
     """
 
-    def __init__(self, model, variables, residual_model=False,
-                 batch_route="stacked", eval_impl=None, device=None):
+    def __init__(self, model, variables, lr=5e-5, weight_decay=1e-5, iters=20,
+                 residual_model=False, batch_route="stacked", eval_impl=None,
+                 device=None):
         if batch_route not in BATCH_ROUTES:
             raise ValueError(f"batch_route must be one of {BATCH_ROUTES}")
         _eval_impl(eval_impl)
         self.device = resolve_device(device)
         self.model = load_jax_variables(copy.deepcopy(model), variables)
         self.model = self.model.to(self.device).eval()
+        self.tx = torch_adam(lr, weight_decay)
+        self.opt_state = self.tx.init(JaxRavel(self.model).ravel())
+        self.iters = iters
         self.batch_route = batch_route
         self.eval_impl = eval_impl
         self._residual_model = residual_model
         self._denoise = make_denoise(self.model, residual_model)
+        self._step = make_online_step(self.model, self.tx, iters=iters,
+                                      residual_model=residual_model)
 
     def _tensor(self, x):
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
 
+    def process_frame(self, cur, prev, flow):
+        """Fine-tune on (cur, prev, flow) and return (deno, losses): the
+        eval-mode denoise of ``cur`` with the updated weights, and the
+        ``iters`` losses, one before each update."""
+        self.opt_state, deno, losses = self._step(
+            self.opt_state, self._tensor(cur), self._tensor(prev),
+            self._tensor(flow), self.eval_impl)
+        return deno, losses
+
     def denoise_only(self, cur):
         """Eval-mode denoise of one (H, W, C) frame in [0, 1]."""
-        return self._denoise(self._tensor(cur), self.eval_impl)
+        return self._denoise(self._tensor(cur), eval_impl=self.eval_impl)
 
     @torch.no_grad()
     def denoise_batch(self, frames, route=None):
@@ -105,7 +219,8 @@ class OnlineDenoiser:
                 self.eval_impl):
             route = "perframe"
         if route == "perframe":
-            return torch.stack([self._denoise(f, self.eval_impl) for f in x])
+            return torch.stack([self._denoise(f, eval_impl=self.eval_impl)
+                                for f in x])
         y = fused_eval_apply_batch(self.model, x, eval_impl=self.eval_impl)
         return y if self._residual_model else x - y
 

@@ -17,7 +17,7 @@ setup(
     packages=find_packages(include=["frame2frame_tpu", "frame2frame_tpu.*",
                                     "frame2frame_tpu_torch",
                                     "frame2frame_tpu_torch.*"]),
-    package_data={"frame2frame_tpu_torch": ["csrc/*.cu"]},
+    package_data={"frame2frame_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",

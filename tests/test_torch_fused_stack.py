@@ -81,7 +81,7 @@ def test_fwd_layer_matches_pallas(H, W, odd, stack, dt):
                         torch.from_numpy(s), torch.from_numpy(b))
     assert got.dtype == TDT[dt] and got.shape == x.shape
     np.testing.assert_allclose(got.float().numpy(), want, **TOL[dt])
-    assert tfs.launch_counts() == {"fwd_layer": 0, "fwd_layer_eval": 0}
+    assert not any(tfs.launch_counts().values())
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
@@ -102,7 +102,7 @@ def test_fwd_layer_eval_matches_pallas(H, W, odd, stack, dt):
                              torch.from_numpy(b))
     assert got.dtype == TDT[dt] and got.shape == x.shape
     np.testing.assert_allclose(got.float().numpy(), want, **TOL[dt])
-    assert tfs.launch_counts() == {"fwd_layer": 0, "fwd_layer_eval": 0}
+    assert not any(tfs.launch_counts().values())
 
 
 def test_affine_from_stats_matches_jax():

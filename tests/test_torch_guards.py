@@ -1,6 +1,8 @@
 """Guards of the port's boundaries: it never imports JAX, flax or the JAX
-package; its checkpoint reader decodes flax msgpack files bit for bit."""
+package; its kernel wrappers never fall back; its checkpoint reader decodes
+flax msgpack files bit for bit."""
 
+import ast
 import re
 import subprocess
 import sys
@@ -40,16 +42,78 @@ print(len(names))
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 12
+    assert int(res.stdout.split()[-1]) >= 13
 
 
 def test_port_sources_name_no_jax():
-    pat = re.compile(r"^\s*(import|from)\s+(jax|flax|frame2frame_tpu)\b",
+    pat = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|frame2frame_tpu)\b",
                      re.MULTILINE)
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) >= 13
+    assert len(files) >= 14
+    assert PKG / "ops" / "warp.py" in files
     for f in files:
         assert not pat.search(f.read_text()), f
+
+
+def test_cuda_sources_stand_alone():
+    """The kernels include the CUDA toolkit's headers and their own shared
+    header only: no PyTorch header (a build takes seconds), no library of
+    finished kernels."""
+    sources = sorted((PKG / "csrc").glob("*.cu*"))
+    assert [f.name for f in sources] == ["conv3x3_c64.cuh", "fused_stack.cu",
+                                         "fused_stack_bwd.cu"]
+    allowed = {"cuda_bf16.h", "cuda_runtime.h", "stdint.h", "atomic",
+               "type_traits", "conv3x3_c64.cuh"}
+    for f in sources:
+        text = f.read_text()
+        included = set(re.findall(r'#include\s+[<"]([^>"]+)[>"]', text))
+        assert included <= allowed, (f.name, included - allowed)
+        code = re.sub(r"//[^\n]*", "", text)  # comments may name them
+        assert not re.search(r"cudnn|cublas|cutlass|torch|atomic(Add|CAS)",
+                             code, re.IGNORECASE), f.name
+
+
+def test_kernel_wrappers_never_fall_back():
+    """``ops/fused_stack.py`` has no ``try`` at all, so no failed launch can
+    give way to a plain version; every kernel has its ``_plain`` twin, and a
+    wrapper reaches the plain version only behind a test of the tensor's
+    device."""
+    from frame2frame_tpu_torch.ops import fused_stack as fs
+
+    path = PKG / "ops" / "fused_stack.py"
+    tree = ast.parse(path.read_text())
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+    names = [k.__name__ for k in fs.KERNELS]
+    assert len(names) == len(set(names)) == 4
+    funcs = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    for name in names:
+        assert callable(getattr(fs, name + "_plain")), name
+        calls_plain = [
+            n for n in ast.walk(funcs[name]) if isinstance(n, ast.If)
+            and "device.type == 'cpu'" in ast.unparse(n.test)
+            and (name + "_plain") in ast.unparse(n.body[0])]
+        assert len(calls_plain) == 1, name
+        body = ast.unparse(funcs[name])
+        assert body.count(name + "_plain") == 1, name
+        assert body.count(f"{name}.launches += 1") == 1, name
+
+
+def test_wrappers_refuse_a_device_without_a_kernel():
+    """A tensor that is neither on the CPU nor on a CUDA card raises; it
+    does not reach the plain version."""
+    from frame2frame_tpu_torch.ops import fused_stack as fs
+
+    x = torch.zeros(1, 4, 6, 64, device="meta")
+    w = torch.zeros(3, 3, 64, 64, device="meta")
+    v = torch.zeros(64, device="meta")
+    vecs = torch.zeros(8, 64, device="meta")
+    for call in (lambda: fs.fwd_layer(x, w, v, v),
+                 lambda: fs.fwd_layer_train(x, w, v, v),
+                 lambda: fs.fwd_layer_eval(x, w, v, v),
+                 lambda: fs.bwd_layer(x, x, x, w, vecs)):
+        with pytest.raises(ValueError, match="no kernel for meta"):
+            call()
+    assert not any(fs.launch_counts().values())
 
 
 def _leaves(tree, path=()):
@@ -115,5 +179,10 @@ def test_kernel_library_is_named_by_its_source(tmp_path, monkeypatch):
     (tmp_path / "k.cu").write_text("// two\n")
     second = _build.library_path("k")
     assert first != second
+    # so does a source whose shared header was edited
+    (tmp_path / "common.cuh").write_text("// header\n")
+    third = _build.library_path("k")
+    assert third not in (first, second)
+    assert _build.sources() == ["k"]
     assert first.parent == second.parent == _build.BUILD_DIR
     assert _build.BUILD_DIR == REPO / "build"

@@ -54,7 +54,7 @@ def test_serving_matches_jax_engine(monkeypatch, impl, residual):
         got = eng.denoise_batch(x, route=route).numpy()
         np.testing.assert_allclose(got, want[route], err_msg=route,
                                    **BF16_TOL)
-    assert tfs.launch_counts() == {"fwd_layer": 0, "fwd_layer_eval": 0}
+    assert not any(tfs.launch_counts().values())
 
 
 def test_routes_agree_and_stacked_falls_back(monkeypatch):
