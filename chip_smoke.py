@@ -13,6 +13,9 @@ Phases, any failure exits non-zero:
    eval kernels), with CUDA-event times of the kernel, the plain version
    and a library yardstick that the port never calls (``F.conv2d``, and
    ``aten.convolution_backward`` for ``bwd_layer``, on bf16 channels-last);
+   the four end kernels of the flat step (``first_conv``, ``last_loss_fwd``,
+   ``last_loss_bwd``, ``first_dw``) the same way, one frame, with their
+   reductions run twice for equal bits;
 4. the serving path: the pretrained DnCNN-17 (results/dncnn17_s25) loaded
    through the port, ``OnlineDenoiser.denoise_only`` and ``denoise_batch``
    (both routes) on four 540p synthetic noisy frames under the "affine" and
@@ -22,11 +25,14 @@ Phases, any failure exits non-zero:
    serving calls, with their kernels by device time (torch.profiler);
 5. the online fine-tune: three synthetic 540p frames of one moving texture
    with their flow; one step's loss and parameter gradients on the kernels
-   against the same step on their plain versions;
+   against the same step on their plain versions, for the per-iteration
+   route (``fused_train_apply``) and for the flat step (``flat_net_loss``);
    ``OnlineDenoiser.process_frame`` (20 Adam updates, then the eval denoise)
-   on two frames with the launch counts and the losses checked; the same two
-   frames fine-tuned by the plain module's autograd in f32, losses and PSNR
-   compared; host-clock and device times of ``process_frame``;
+   on two frames on the flat route, which the engine takes by itself, and on
+   the per-iteration route, with the launch counts and the losses checked;
+   the same two frames fine-tuned by the plain module's autograd in f32,
+   losses and PSNR compared, and the two routes against each other;
+   host-clock and device times of ``process_frame`` on both routes;
 6. a JSON line of per-kernel numbers, then the card line, then the result
    line ``{"ok": true, "device": {...}}``.
 
@@ -80,18 +86,38 @@ STEP_GRAD_RTOL = 5e-3
 # H100: 1.9e-3 and 0.044 dB)
 TRAIN_LOSS_RTOL = 5e-3
 TRAIN_PSNR_TOL = 0.1  # dB
+# the flat route against the per-iteration route on the same frames: the
+# routes round noise and the cotangent at different points and 20 Adam
+# updates compound it (the bounds of the JAX package's own comparison of its
+# two routes)
+ROUTES_LOSS_RTOL = 1e-2
+ROUTES_DENO_RMS = 5e-3
+# noise and the loss of last_loss_fwd against the plain version: f32 sums of
+# the same products of the same bf16 operands, in another order
+ENDS_F32_RTOL = 1e-4
+# spin of the device ahead of a timing, about 3 ms: the end kernels are
+# shorter than their wrappers' host time
+HEAD_START_CYCLES = 5_000_000
 ITERS = 20
 REPLACES = {
     "fwd_layer": "frame2frame_tpu/ops/fused_stack.py:673",
     "fwd_layer_train": "frame2frame_tpu/ops/fused_stack.py:673",
     "fwd_layer_eval": "frame2frame_tpu/ops/fused_stack.py:870",
     "bwd_layer": "frame2frame_tpu/ops/fused_stack.py:1161",
+    "first_conv": "frame2frame_tpu/ops/fused_ends.py:132",
+    "last_loss_fwd": "frame2frame_tpu/ops/fused_ends.py:233",
+    "last_loss_bwd": "frame2frame_tpu/ops/fused_ends.py:378",
+    "first_dw": "frame2frame_tpu/ops/fused_ends.py:485",
 }
 SOURCES = {
     "fwd_layer": "frame2frame_tpu_torch/csrc/fused_stack.cu",
     "fwd_layer_train": "frame2frame_tpu_torch/csrc/fused_stack.cu",
     "fwd_layer_eval": "frame2frame_tpu_torch/csrc/fused_stack.cu",
     "bwd_layer": "frame2frame_tpu_torch/csrc/fused_stack_bwd.cu",
+    "first_conv": "frame2frame_tpu_torch/csrc/fused_ends.cu",
+    "last_loss_fwd": "frame2frame_tpu_torch/csrc/fused_ends.cu",
+    "last_loss_bwd": "frame2frame_tpu_torch/csrc/fused_ends.cu",
+    "first_dw": "frame2frame_tpu_torch/csrc/fused_ends.cu",
 }
 
 
@@ -110,6 +136,21 @@ def card_line():
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     check(res.returncode == 0, f"nvidia-smi failed: {res.stderr.strip()}")
     return res.stdout.strip().splitlines()[0]
+
+
+def ptxas_entries(report):
+    """(kernel, registers, spill line) for each entry function in the
+    output of ``nvcc -Xptxas -v``."""
+    entry = spill = None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry, spill = m.group(1), None
+        elif "spill" in line:
+            spill = line.strip()
+        elif entry and (m := re.search(r"Used (\d+) registers", line)):
+            yield entry, m.group(1), spill
+            entry = None
 
 
 def bound_ms(nbytes, flops):
@@ -349,6 +390,169 @@ def train_kernel_phase(torch, F, fs, cuda_time_ms):
     return rows
 
 
+def ends_inputs(torch, rng, h, wd, dt):
+    """Inputs of the four end kernels for one (h, wd) frame on a ``dt``
+    chain: the frame and its loss constants, z_L and da0, and the last
+    BatchNorm's vectors."""
+    def img():
+        return torch.from_numpy(rng.random((h, wd), dtype=np.float32)).cuda()
+
+    def act(scale=1.0):
+        return (scale * torch.from_numpy(rng.standard_normal(
+            (1, h, wd, FEAT), dtype=np.float32)).cuda()).to(dt).contiguous()
+
+    def vec(mean, std):
+        return mean + std * rng.standard_normal(FEAT)
+
+    mask = (img() > 0.1).float()
+    vecs = torch.from_numpy(np.stack([
+        vec(1.0, 0.2), vec(0.0, 0.1), 0.5 + rng.random(FEAT),
+        vec(0.0, 0.1)]).astype(np.float32)).cuda()
+    x = img()
+    return {"x": x.to(dt).contiguous(), "aux_c": mask * x - mask * img(),
+            "aux_m": mask, "z": act(), "da": act(0.1), "vecs": vecs}
+
+
+def hold_end_kernels(torch, fe, tag, d, w_in, w_out):
+    """The four end kernels against their plain versions with the kernels'
+    operand rounding; ``last_loss_bwd`` and ``first_dw`` from the kernels'
+    own forward outputs, so both sides decide the same signs and masks.
+    Returns the errors by output."""
+    errs = {}
+    s, b = d["vecs"][fe.E_S].contiguous(), d["vecs"][fe.E_B].contiguous()
+    z1 = fe.first_conv(d["x"], w_in)
+    torch.cuda.synchronize()
+    errs["z1"] = hold_close(tag, "z1", z1, fe.first_conv_plain(
+        d["x"], w_in, mma_bf16=True), KERNEL_RTOL)
+    noise, loss = fe.last_loss_fwd(d["z"], s, b, w_out, d["aux_c"],
+                                   d["aux_m"])
+    torch.cuda.synchronize()
+    noise_ref, loss_ref = fe.last_loss_fwd_plain(
+        d["z"], s, b, w_out, d["aux_c"], d["aux_m"], mma_bf16=True)
+    errs["noise"] = hold_close(tag, "noise", noise, noise_ref, ENDS_F32_RTOL)
+    errs["loss"] = hold_close(tag, "loss", loss, loss_ref, ENDS_F32_RTOL)
+    g, dw_out, stats = fe.last_loss_bwd(noise, d["aux_c"], d["aux_m"],
+                                        d["z"], w_out, d["vecs"])
+    torch.cuda.synchronize()
+    g_ref, dw_ref, stats_ref = fe.last_loss_bwd_plain(
+        noise, d["aux_c"], d["aux_m"], d["z"], w_out, d["vecs"],
+        mma_bf16=True)
+    errs["g_L"] = hold_close(tag, "g_L", g, g_ref, KERNEL_RTOL)
+    errs["dW_out"] = hold_close(tag, "dW_out", dw_out.contiguous(), dw_ref,
+                                SUMS_RTOL)
+    for k, name in enumerate(("sum_gp_L", "sum_gp_zhat_L")):
+        errs[name] = hold_close(tag, name, stats[k], stats_ref[k], SUMS_RTOL)
+    dw_in = fe.first_dw(d["da"], z1, d["x"])
+    torch.cuda.synchronize()
+    errs["dW_in"] = hold_close(tag, "dW_in", dw_in, fe.first_dw_plain(
+        d["da"], z1, d["x"], mma_bf16=True), SUMS_RTOL)
+    for name, (err, _) in errs.items():
+        check(np.isfinite(err), f"{tag} {name}: non-finite output")
+    return errs, z1, noise
+
+
+def ends_kernel_phase(torch, F, fe, cuda_time_ms):
+    """The flat step's end kernels against their plain versions; returns the
+    per-kernel rows."""
+    rng = np.random.default_rng(4)
+    w_in = torch.from_numpy((rng.standard_normal((3, 3, 1, FEAT))
+                             * np.sqrt(2.0 / 9)).astype(np.float32)).cuda()
+    w_out = torch.from_numpy((rng.standard_normal((3, 3, FEAT, 1))
+                              * np.sqrt(2.0 / (9 * FEAT))).astype(np.float32)).cuda()
+    for h, wd in ((13, 20), (37, 50), (5, 7), (1, 1)):
+        for dt in (torch.bfloat16, torch.float32):
+            hold_end_kernels(torch, fe, f"end kernels {(h, wd)} {dt}",
+                             ends_inputs(torch, rng, h, wd, dt), w_in, w_out)
+    print("end kernel edge shapes: ok", flush=True)
+
+    d = ends_inputs(torch, rng, H, W, torch.bfloat16)
+    errs, z1, noise = hold_end_kernels(torch, fe, "end kernels 540p bf16", d,
+                                       w_in, w_out)
+    print("end kernels 540p bf16: " + ", ".join(
+        f"{k} {e:.3e}/{s:.3e}" for k, (e, s) in errs.items()), flush=True)
+    s, b = d["vecs"][fe.E_S].contiguous(), d["vecs"][fe.E_B].contiguous()
+    kern = {
+        "first_conv": lambda: fe.first_conv(d["x"], w_in),
+        "last_loss_fwd": lambda: fe.last_loss_fwd(
+            d["z"], s, b, w_out, d["aux_c"], d["aux_m"]),
+        "last_loss_bwd": lambda: fe.last_loss_bwd(
+            noise, d["aux_c"], d["aux_m"], d["z"], w_out, d["vecs"]),
+        "first_dw": lambda: fe.first_dw(d["da"], z1, d["x"]),
+    }
+    plain = {
+        "first_conv": lambda: fe.first_conv_plain(d["x"], w_in, mma_bf16=True),
+        "last_loss_fwd": lambda: fe.last_loss_fwd_plain(
+            d["z"], s, b, w_out, d["aux_c"], d["aux_m"], mma_bf16=True),
+        "last_loss_bwd": lambda: fe.last_loss_bwd_plain(
+            noise, d["aux_c"], d["aux_m"], d["z"], w_out, d["vecs"],
+            mma_bf16=True),
+        "first_dw": lambda: fe.first_dw_plain(d["da"], z1, d["x"],
+                                              mma_bf16=True),
+    }
+    # the same inputs twice: the reductions must give the same bits
+    for name in ("last_loss_fwd", "last_loss_bwd", "first_dw"):
+        def sums():
+            out = kern[name]()
+            out = out[1:] if isinstance(out, tuple) else (out,)
+            return torch.cat([o.reshape(-1) for o in out])
+        check(torch.equal(sums(), sums()), f"{name}: sums differ between "
+              "two runs on the same inputs")
+
+    # library yardsticks on bf16 channels-last, operands prepared outside:
+    # one call computes first_conv and first_dw; last_loss_fwd and
+    # last_loss_bwd are several functions at once (affine + ReLU, conv, loss;
+    # sign, transposed conv, weight gradient, masked sums) and have none
+    x_lib = d["x"][None, None].contiguous(memory_format=torch.channels_last)
+    w_in_lib = w_in.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    gp_lib = (d["da"] * (z1 > 0)).permute(0, 3, 1, 2)
+    library = {
+        "first_conv": lambda: F.conv2d(x_lib, w_in_lib, padding=1),
+        "first_dw": lambda: torch.nn.grad.conv2d_weight(
+            x_lib, (FEAT, 1, 3, 3), gp_lib, padding=1),
+    }
+
+    def nbytes(*tensors):
+        return sum(t.numel() * t.element_size() for t in tensors)
+
+    conv_flops = 2 * H * W * 9 * FEAT
+    g = torch.empty_like(d["z"])
+    small = torch.empty(9 * FEAT, dtype=torch.float32)
+    work = {
+        "first_conv": (nbytes(d["x"], w_in, z1), conv_flops, errs["z1"]),
+        "last_loss_fwd": (nbytes(d["z"], s, b, w_out, d["aux_c"], d["aux_m"],
+                                 noise) + 4, conv_flops, errs["noise"]),
+        "last_loss_bwd": (nbytes(noise, d["aux_c"], d["aux_m"], d["z"], w_out,
+                                 d["vecs"], g, small) + 2 * FEAT * 4,
+                          2 * conv_flops, errs["g_L"]),
+        "first_dw": (nbytes(d["da"], z1, d["x"], small), conv_flops,
+                     errs["dW_in"]),
+    }
+    own = {"first_conv": ("z1",), "last_loss_fwd": ("noise", "loss"),
+           "last_loss_bwd": ("g_L", "dW_out", "sum_gp_L", "sum_gp_zhat_L"),
+           "first_dw": ("dW_in",)}
+    rows = {}
+    for name, (nb, flops, err) in work.items():
+        ms = cuda_time_ms(kern[name], head_start_cycles=HEAD_START_CYCLES)
+        plain_ms = cuda_time_ms(plain[name], iters=5)
+        library_ms = (cuda_time_ms(library[name],
+                                   head_start_cycles=HEAD_START_CYCLES)
+                      if name in library else None)
+        bms, by = bound_ms(nb, flops)
+        rows[name] = [{
+            "B": 1, "dtype": "bfloat16", "max_abs_err": err[0],
+            "max_abs_plain": err[1], "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bms, "bound_by": by,
+            "errors": {k: {"max_abs_err": errs[k][0],
+                           "max_abs_plain": errs[k][1]} for k in own[name]}}]
+        lib = "none" if library_ms is None else f"{library_ms:.4f}"
+        print(f"kernel {name} B=1 bfloat16: err {err[0]:.3e} (plain max "
+              f"{err[1]:.3e}) ms {ms:.4f} plain {plain_ms:.4f} library "
+              f"{lib} bound {bms:.4f} ({by})", flush=True)
+    torch.cuda.empty_cache()
+    return rows
+
+
 def synthetic_frames(n, seed=0):
     """Smooth textured clean frames in [0.1, 0.9] and their noisy versions
     (additive Gaussian noise, sigma 25/255)."""
@@ -376,7 +580,9 @@ def profile_call(torch, fn, iters=10, top=6):
     """Host-clock milliseconds per call of ``fn`` (median of ``iters``, each
     ending in a synchronize), then one torch.profiler pass over ``iters``
     calls: device kernel time per call, the device's busy share of the
-    profiled wall time, and the kernels by device time."""
+    profiled wall time, the number of device kernels and of the library's
+    weight-gradient kernels among them per call, and the kernels by device
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -401,10 +607,13 @@ def profile_call(torch, fn, iters=10, top=6):
             k[0] += 1
             k[1] += e.time_range.elapsed_us() / 1e3
     device_ms = sum(v[1] for v in kernels.values())
+    wgrad = sum(c for n, (c, _) in kernels.items() if "wgrad" in n.lower())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:top]
     return {"ms": float(np.median(ts)),
             "device_ms": device_ms / iters if kernels else None,
             "busy_share": device_ms / wall_ms if kernels else None,
+            "device_kernels": sum(c for c, _ in kernels.values()) // iters,
+            "library_wgrad_kernels": wgrad // iters,
             "top_kernels": [{"name": n, "calls": c // iters,
                              "ms": t / iters} for n, (c, t) in top]}
 
@@ -450,9 +659,11 @@ def moving_frames(n, seed=3):
 
 
 def training_phase(torch, fs, psnr, variables, model):
-    """The online fine-tune; returns (launch counts of the counted run,
-    timings and comparisons)."""
+    """The online fine-tune; returns (launch counts of the counted runs on
+    the per-iteration route and on the flat route, timings and
+    comparisons)."""
     from frame2frame_tpu_torch.models import fused_apply as fa
+    from frame2frame_tpu_torch.train import flat_step
     from frame2frame_tpu_torch.models.dncnn import JaxRavel, param_leaves
     from frame2frame_tpu_torch.ops.warp import (
         bilinear_warp_with_mask, occlusion_mask)
@@ -543,33 +754,103 @@ def training_phase(torch, fs, psnr, variables, model):
     del grads_k, grads_p
     torch.cuda.empty_cache()
 
-    # (b) the main path: two fine-tuned frames through the engine
-    eng = OnlineDenoiser(model, variables, iters=ITERS, residual_model=True,
-                         device="cuda")
-    nmid = model.nmid
-    want = {"fwd_layer": nmid, "fwd_layer_train": nmid * ITERS,
-            "fwd_layer_eval": 0, "bwd_layer": nmid * ITERS}
-    fs.reset_launch_counts()
-    denos, losses = [], []
-    for k in (1, 2):
-        before = dict(fs.launch_counts())
-        deno, ls = eng.process_frame(frames[k], frames[k - 1], flow_t[k])
+    # (a') the same for the flat step: loss and batch statistics of the
+    # kernels against the plain twin's own forward, gradients against the
+    # plain backward from the kernels' forward (its activations and noise)
+    with torch.no_grad():
+        data = flat_step.prep_frame(frames[1], mask, target)
+
+    def one_flat_step(net_loss):
+        m = copy.deepcopy(model).to(dev)
+        loss, means, vars_ = net_loss(flat_step.diff_of(m), data)
+        loss.backward()
         torch.cuda.synchronize()
-        after = fs.launch_counts()
-        for name, n in want.items():
-            check(after[name] - before[name] == n,
-                  f"process_frame {k}: {name} launched "
-                  f"{after[name] - before[name]} times, expected {n}")
-        ls = ls.cpu().numpy()
-        check(deno.shape == (H, W, 1) and ls.shape == (ITERS,),
-              f"process_frame {k}: shapes {tuple(deno.shape)} {ls.shape}")
-        check(np.isfinite(ls).all() and bool(torch.isfinite(deno).all()),
-              f"process_frame {k}: non-finite output")
-        check(ls[-1] < ls[0], f"process_frame {k}: loss did not fall "
-              f"({ls[0]} -> {ls[-1]})")
-        denos.append(deno.cpu().numpy())
-        losses.append(ls)
-    launches = fs.launch_counts()
+        return (float(loss.detach()), {"means": means, "vars": vars_},
+                {n: p.grad for n, p in param_leaves(m)})
+
+    twin = functools.partial(flat_step.flat_net_loss_plain, mma_bf16=True)
+    loss_k, stats_k, grads_k = one_flat_step(flat_step.flat_net_loss)
+    loss_p, stats_p, grads_p = one_flat_step(twin)
+    _, _, grads_b = one_flat_step(functools.partial(twin, kernel_forward=True))
+    check(np.isfinite(loss_k), "one flat step: non-finite loss")
+    dl = abs(loss_k - loss_p) / abs(loss_p)
+    ds = max(e / s for e, s in (rel_err(stats_k[k], stats_p[k])
+                                for k in stats_k))
+    independent = max(grad_errors(grads_k, grads_p).values())
+    rel = grad_errors(grads_k, grads_b)
+    by_err = sorted(rel, key=rel.get, reverse=True)
+    worst = rel[by_err[0]]
+    print(f"training one flat step: loss kernels {loss_k:.4f} plain "
+          f"{loss_p:.4f} (rel {dl:.3e}), batch statistics rel {ds:.3e}; "
+          f"gradients from the kernels' forward, max|d|/max|ref| over "
+          f"{len(rel)} parameters, worst first: "
+          + ", ".join(f"{n} {rel[n]:.3e}" for n in by_err[:5])
+          + f"; from each route's own forward {independent:.3e}", flush=True)
+    check(dl <= STEP_LOSS_RTOL, f"one flat step: loss off plain by {dl}")
+    check(ds <= STEP_STATS_RTOL, f"one flat step: statistics off plain by {ds}")
+    check(worst <= STEP_GRAD_RTOL,
+          f"one flat step: gradient off plain by {worst}")
+    out["one_flat_step"] = {
+        "loss": loss_k, "loss_plain": loss_p, "batch_stats_rel_err": ds,
+        "worst_grad_rel_err": worst,
+        "worst_grad_rel_err_independent_forwards": independent}
+    del grads_b, grads_k, grads_p, data
+    torch.cuda.empty_cache()
+
+    # (b) the main path: two fine-tuned frames through the engine, which
+    # takes the flat route by itself; then the per-iteration route
+    nmid = model.nmid
+    ends = ("first_conv", "last_loss_fwd", "last_loss_bwd", "first_dw")
+    mids = {"fwd_layer": nmid, "fwd_layer_train": nmid * ITERS,
+            "fwd_layer_eval": 0, "bwd_layer": nmid * ITERS}
+
+    def fine_tune(route, eng, want):
+        fs.reset_launch_counts()
+        denos, losses = [], []
+        for k in (1, 2):
+            before = dict(fs.launch_counts())
+            deno, ls = eng.process_frame(frames[k], frames[k - 1], flow_t[k])
+            torch.cuda.synchronize()
+            after = fs.launch_counts()
+            for name, n in want.items():
+                check(after[name] - before[name] == n,
+                      f"{route} process_frame {k}: {name} launched "
+                      f"{after[name] - before[name]} times, expected {n}")
+            ls = ls.cpu().numpy()
+            check(deno.shape == (H, W, 1) and ls.shape == (ITERS,),
+                  f"{route} process_frame {k}: shapes {tuple(deno.shape)} "
+                  f"{ls.shape}")
+            check(np.isfinite(ls).all() and bool(torch.isfinite(deno).all()),
+                  f"{route} process_frame {k}: non-finite output")
+            check(ls[-1] < ls[0], f"{route} process_frame {k}: loss did not "
+                  f"fall ({ls[0]} -> {ls[-1]})")
+            denos.append(deno.cpu().numpy())
+            losses.append(ls)
+        return denos, losses, fs.launch_counts()
+
+    eng = OnlineDenoiser(model, variables, iters=ITERS, residual_model=True)
+    denos, losses, flat_launches = fine_tune(
+        "flat", eng, {**mids, **dict.fromkeys(ends, ITERS)})
+    eng_old = OnlineDenoiser(model, variables, iters=ITERS,
+                             residual_model=True, flat_step=False)
+    old_denos, old_losses, launches = fine_tune(
+        "per-iteration", eng_old, {**mids, **dict.fromkeys(ends, 0)})
+    routes_loss = max(float(np.abs(a / b - 1).max())
+                      for a, b in zip(losses, old_losses))
+    routes_deno = max(float(np.sqrt(np.mean((a - b) ** 2)))
+                      for a, b in zip(denos, old_denos))
+    routes_max = max(float(np.abs(a - b).max())
+                     for a, b in zip(denos, old_denos))
+    print(f"training routes: flat against per-iteration, worst loss rel "
+          f"{routes_loss:.3e}, denoised frames rms {routes_deno:.3e} max "
+          f"{routes_max:.3e}", flush=True)
+    check(routes_loss <= ROUTES_LOSS_RTOL,
+          f"flat route's losses off the per-iteration route's by {routes_loss}")
+    check(routes_deno <= ROUTES_DENO_RMS,
+          f"flat route's frames off the per-iteration route's by {routes_deno}")
+    out["routes"] = {"worst_loss_rel_err": routes_loss,
+                     "rms_denoised_diff": routes_deno,
+                     "max_abs_denoised_diff": routes_max}
 
     # (c) the same two frames through the plain module's autograd in f32,
     # with the same optimizer
@@ -594,43 +875,57 @@ def training_phase(torch, fs, psnr, variables, model):
         with torch.no_grad():
             ref_denos.append(ref(frames[k][None])[0].cpu().numpy())
         ref_losses.append(torch.stack(ls).cpu().numpy())
-    worst_loss, worst_psnr = 0.0, 0.0
-    for i, k in enumerate((1, 2)):
-        dls = float(np.abs(losses[i] / ref_losses[i] - 1).max())
-        pk, pr = psnr(clean[k], denos[i]), psnr(clean[k], ref_denos[i])
-        pn = psnr(clean[k], noisy[k])
-        print(f"training frame {k}: loss {losses[i][0]:.2f} -> "
-              f"{losses[i][-1]:.2f} (f32 module {ref_losses[i][0]:.2f} -> "
-              f"{ref_losses[i][-1]:.2f}, worst rel {dls:.3e}); psnr noisy "
-              f"{pn:.4f} kernels {pk:.4f} f32 module {pr:.4f} dB", flush=True)
-        check(pk - pn > MIN_GAIN_DB, f"frame {k}: denoising gain {pk - pn} dB")
-        worst_loss = max(worst_loss, dls)
-        worst_psnr = max(worst_psnr, abs(pk - pr))
-        out[f"frame_{k}"] = {"loss_first": float(losses[i][0]),
-                             "loss_last": float(losses[i][-1]),
-                             "psnr_noisy": pn, "psnr": pk, "psnr_f32": pr}
-    check(worst_loss <= TRAIN_LOSS_RTOL,
-          f"losses off the f32 module's by {worst_loss}")
-    check(worst_psnr <= TRAIN_PSNR_TOL,
-          f"psnr off the f32 module's by {worst_psnr} dB")
-    out["worst_loss_rel_err"], out["worst_psnr_diff_db"] = worst_loss, worst_psnr
+    for route, r_denos, r_losses in (("flat", denos, losses),
+                                     ("per-iteration", old_denos, old_losses)):
+        worst_loss, worst_psnr = 0.0, 0.0
+        for i, k in enumerate((1, 2)):
+            dls = float(np.abs(r_losses[i] / ref_losses[i] - 1).max())
+            pk, pr = psnr(clean[k], r_denos[i]), psnr(clean[k], ref_denos[i])
+            pn = psnr(clean[k], noisy[k])
+            d = r_denos[i] - ref_denos[i]
+            print(f"training {route} frame {k}: denoised against the f32 "
+                  f"module's rms {np.sqrt(np.mean(d ** 2)):.3e} max "
+                  f"{np.abs(d).max():.3e}", flush=True)
+            print(f"training {route} frame {k}: loss {r_losses[i][0]:.2f} -> "
+                  f"{r_losses[i][-1]:.2f} (f32 module {ref_losses[i][0]:.2f} "
+                  f"-> {ref_losses[i][-1]:.2f}, worst rel {dls:.3e}); psnr "
+                  f"noisy {pn:.4f} kernels {pk:.4f} f32 module {pr:.4f} dB",
+                  flush=True)
+            check(pk - pn > MIN_GAIN_DB,
+                  f"{route} frame {k}: denoising gain {pk - pn} dB")
+            worst_loss = max(worst_loss, dls)
+            worst_psnr = max(worst_psnr, abs(pk - pr))
+            out[f"{route}/frame_{k}"] = {
+                "loss_first": float(r_losses[i][0]),
+                "loss_last": float(r_losses[i][-1]),
+                "psnr_noisy": pn, "psnr": pk, "psnr_f32": pr}
+        check(worst_loss <= TRAIN_LOSS_RTOL,
+              f"{route}: losses off the f32 module's by {worst_loss}")
+        check(worst_psnr <= TRAIN_PSNR_TOL,
+              f"{route}: psnr off the f32 module's by {worst_psnr} dB")
+        out[f"{route}/worst_loss_rel_err"] = worst_loss
+        out[f"{route}/worst_psnr_diff_db"] = worst_psnr
     del ref
     torch.cuda.empty_cache()
 
-    # (d) where a fine-tuned frame's time goes
-    torch.cuda.reset_peak_memory_stats()
-    prof = profile_call(
-        torch, lambda: eng.process_frame(frames[2], frames[1], flow_t[2]),
-        iters=3, top=14)
+    # (d) where a fine-tuned frame's time goes, on both routes in turn
     deno_ms = profile_call(torch, lambda: eng.denoise_only(frames[2]),
                            iters=5)["ms"]
-    prof["iters"] = ITERS
-    prof["ms_per_iter"] = (prof["ms"] - deno_ms) / ITERS
-    prof["frames_per_s"] = 1e3 / prof["ms"]
-    prof["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    out["process_frame"] = prof
-    print("training process_frame: " + json.dumps(prof), flush=True)
-    return launches, out
+    for key, e in (("process_frame", eng),
+                   ("process_frame_per_iteration", eng_old)):
+        torch.cuda.reset_peak_memory_stats()
+        prof = profile_call(
+            torch, lambda: e.process_frame(frames[2], frames[1], flow_t[2]),
+            iters=3, top=14)
+        prof["iters"] = ITERS
+        prof["ms_per_iter"] = (prof["ms"] - deno_ms) / ITERS
+        prof["frames_per_s"] = 1e3 / prof["ms"]
+        prof["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out[key] = prof
+        print(f"training {key}: " + json.dumps(prof), flush=True)
+    check(out["process_frame"]["library_wgrad_kernels"] == 0,
+          "the flat route ran a library weight-gradient kernel")
+    return launches, flat_launches, out
 
 
 def serving_phase(torch, fs, psnr):
@@ -730,6 +1025,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     from frame2frame_tpu_torch.ops import _build
+    from frame2frame_tpu_torch.ops import fused_ends as fe
     from frame2frame_tpu_torch.ops import fused_stack as fs
     from frame2frame_tpu_torch.utils.metrics import psnr
     from frame2frame_tpu_torch.utils.timer import cuda_time_ms
@@ -746,28 +1042,33 @@ def main():
         print(f"build: {', '.join(n + '.cu' for n in reports)} in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         for name, report in reports.items():
-            for entry, spill, regs in re.findall(
-                    r"Compiling entry function '(\w+)'.*\n\s*(.*spill loads)"
-                    r"\n.*Used (\d+) registers", report):
+            for entry, regs, spill in ptxas_entries(report):
                 print(f"  ptxas {name}: {entry} {regs} registers, {spill}",
                       flush=True)
 
         rows = kernel_phase(torch, F, fs, cuda_time_ms)
         rows.update(train_kernel_phase(torch, F, fs, cuda_time_ms))
+        rows.update(ends_kernel_phase(torch, F, fe, cuda_time_ms))
         serve_launches, timings, variables, model = serving_phase(
             torch, fs, psnr)
-        train_launches, training = training_phase(torch, fs, psnr, variables,
-                                                  model)
+        train_launches, flat_launches, training = training_phase(
+            torch, fs, psnr, variables, model)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
 
     # each path ran with the counts set to 0 just before it and read just
     # after; a kernel must have been launched on every path it belongs to
-    paths = {"fwd_layer": ("serving", "training"),
+    # (training: the per-iteration route; flat: the flat route, which the
+    # engine takes by itself)
+    paths = {"fwd_layer": ("serving", "training", "flat"),
              "fwd_layer_eval": ("serving",),
-             "fwd_layer_train": ("training",), "bwd_layer": ("training",)}
-    by_path = {"serving": serve_launches, "training": train_launches}
+             "fwd_layer_train": ("training", "flat"),
+             "bwd_layer": ("training", "flat"),
+             "first_conv": ("flat",), "last_loss_fwd": ("flat",),
+             "last_loss_bwd": ("flat",), "first_dw": ("flat",)}
+    by_path = {"serving": serve_launches, "training": train_launches,
+               "flat": flat_launches}
     for name, on in paths.items():
         for path in on:
             if by_path[path][name] <= 0:

@@ -1,0 +1,569 @@
+// Hopper (sm_90a) kernels for the two ends of the DnCNN and its loss in the
+// online fine-tune: the 1 -> 64 input convolution, the 64 -> 1 output
+// convolution with the last BatchNorm affine + ReLU before it and the masked
+// summed L1 loss behind it, and their backward passes.
+//
+//   f2f_first_conv     z1 = conv3x3(x, w_in), raw (the ReLU is the first mid
+//     layer's prologue). Replaces frame2frame_tpu/ops/fused_ends.py:
+//     first_conv (_first_conv_kernel).
+//   f2f_last_loss_fwd  a = relu(s * z_L + b); noise = conv3x3(a, w_out) in
+//     f32; loss = sum |aux_c - aux_m * noise|. Replaces last_loss_fwd
+//     (_last_fwd_kernel). The stored activation of the TPU kernel is not
+//     emitted: the backward rebuilds a from z_L.
+//   f2f_last_loss_bwd  e = aux_m * sign(aux_c - aux_m * noise), sign(0) = 0,
+//     dL/dnoise = -e; g_L = conv3x3^T(-e, w_out), the cotangent of a;
+//     dW_out[t][c] = sum_p a[p + t][c] * -e[p]; and the last BatchNorm's
+//     backward sums sum(gp), sum(gp * zhat_L), gp = g_L * [s * z_L + b > 0],
+//     from the f32 g_L before it is rounded. Replaces last_loss_bwd
+//     (_last_bwd_kernel); g_L and dW_out leave with their final signs.
+//   f2f_first_dw       dW_in[t][c] = sum_p x[p + t] * da0[p][c] * [z1 > 0].
+//     Replaces first_dw (_first_dw_kernel).
+//
+// Images are (H, W) row-major without padding, activations (1, H, W, 64)
+// NHWC, T = bf16 or float (the chain's type); aux_c, aux_m and noise are
+// f32. The lane embedding, the odd slab and the column masks of the TPU
+// kernels exist to feed a 128 x 128 matrix unit and have no counterpart.
+// Zero SAME padding applies to x, to a (after the affine and the ReLU) and to
+// e. Dot operands are rounded to bf16 (x, a, e, da0 * [z1 > 0], the weights),
+// as the TPU's matrix unit takes them, and accumulated in f32.
+//
+// Bound at 540 x 960: K or N of these convolutions is 1, 0.6 GFLOP a
+// convolution, nothing against the bytes: one 64-channel activation is
+// 66.4 MB in bf16 (20 us at 3.35 TB/s). first_conv writes one, last_loss_fwd
+// reads one, last_loss_bwd reads one and writes one, first_dw reads two. So
+// the matrix unit stays idle: plain FMAs on operands in registers and shared
+// memory, every activation byte read once with 16-byte loads (a thread
+// keeps one 8-channel chunk of a pixel), several loads in flight a thread.
+//
+// A persistent block of 256 threads walks tiles of 8 x 32 pixels: thread =
+// (pixel column, 8-channel chunk), looping over the tile's rows. The
+// single-channel operand of a tile (x, or -e) lies in shared memory with a
+// one-pixel halo, zeros outside the image; its rows are not 16-byte aligned
+// for odd W, so it is loaded by scalars. last_loss_fwd turns the convolution
+// inside out: each pixel of the halo tile gives its nine tap products
+// sum_c a[c] * w[t][c] (eight threads a pixel, added by shuffles), and an
+// output pixel gathers one product from each of its nine neighbours.
+//
+// Sums over the pixels (loss, dW, BatchNorm sums) are reduced without
+// atomics: a thread keeps its sums over all tiles of its block, the block
+// adds them by shuffles and shared memory in a fixed order into one row of
+// partials, and finish_sums adds the rows in block order in double: the same
+// inputs give the same bits on every run.
+
+#include "conv3x3_c64.cuh"
+
+namespace {
+
+using namespace f2f;
+
+constexpr int ETH = 8;             // tile rows
+constexpr int ETW = 32;            // tile columns
+constexpr int EHH = ETH + 2;       // halo tile rows
+constexpr int EHW = ETW + 2;       // halo tile columns
+constexpr int ETHREADS = ETW * 8;  // one thread a pixel column and chunk
+constexpr int EWARPS = ETHREADS / 32;
+constexpr int BWD_SUMS = 11;       // last_loss_bwd: 9 dW taps, 2 BN sums
+constexpr unsigned FULL = 0xffffffffu;
+
+static_assert(ETH * ETW == ETHREADS, "last_loss_fwd: one output a thread");
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ float ldf(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
+__device__ __forceinline__ float ldf(const float* p) { return *p; }
+
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float v[8]) {
+  *reinterpret_cast<uint4*>(p) = pack8(v);
+}
+
+__device__ __forceinline__ void store8(float* p, const float v[8]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// tile[hy * EHW + hx] = value(y * W + x) at image pixel (y0 + hy - 1,
+// x0 + hx - 1), 0 outside the image.
+template <typename F>
+__device__ __forceinline__ void stage_halo(float* tile, int y0, int x0, int H,
+                                           int W, F value) {
+  for (int i = threadIdx.x; i < EHH * EHW; i += ETHREADS) {
+    const int hy = i / EHW, hx = i - hy * EHW;
+    const int y = y0 + hy - 1, x = x0 + hx - 1;
+    const bool inside = y >= 0 && y < H && x >= 0 && x < W;
+    tile[i] = inside ? value((size_t)y * W + x) : 0.f;
+  }
+}
+
+// v[i][k]: this thread's sum of item i for channel 8 * (tid & 7) + k.
+// row[i * C + ch] = the sum over the block's threads, added in a fixed
+// order: lanes of a warp by shuffles, warps in order. red: EWARPS * NV * C.
+template <int NV>
+__device__ __forceinline__ void block_sums(float (&v)[NV][8], float* red,
+                                           float* row) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int chunk = tid & 7;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      float s = v[i][k];
+      s += __shfl_xor_sync(FULL, s, 8);
+      s += __shfl_xor_sync(FULL, s, 16);
+      if (lane < 8) red[(warp * NV + i) * C + chunk * 8 + k] = s;
+    }
+  }
+  __syncthreads();
+  for (int idx = tid; idx < NV * C; idx += ETHREADS) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < EWARPS; ++w) s += red[w * NV * C + idx];
+    row[idx] = s;
+  }
+}
+
+// x: (H, W) T; w: (9, 64) f32; z: (H, W, 64) T.
+template <typename T>
+__global__ void __launch_bounds__(ETHREADS)
+first_conv_k(const T* __restrict__ x, const float* __restrict__ w,
+             T* __restrict__ z, int H, int W, int tiles_x, int ntiles) {
+  __shared__ float xs[EHH * EHW];
+  const int tid = threadIdx.x, chunk = tid & 7, px = tid >> 3;
+  float wr[9][8];
+#pragma unroll
+  for (int t = 0; t < 9; ++t)
+#pragma unroll
+    for (int k = 0; k < 8; ++k) wr[t][k] = round_bf16(w[t * C + chunk * 8 + k]);
+
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int y0 = (tile / tiles_x) * ETH, x0 = (tile % tiles_x) * ETW;
+    __syncthreads();  // the previous tile's rows are done with xs
+    stage_halo(xs, y0, x0, H, W,
+               [&](size_t i) { return round_bf16(ldf(x + i)); });
+    __syncthreads();
+    const int xx = x0 + px;
+    if (xx >= W) continue;
+#pragma unroll
+    for (int py = 0; py < ETH; ++py) {
+      const int y = y0 + py;
+      if (y >= H) break;
+      float acc[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) acc[k] = 0.f;
+#pragma unroll
+      for (int t = 0; t < 9; ++t) {
+        const float v = xs[(py + t / 3) * EHW + px + t % 3];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) acc[k] = fmaf(v, wr[t][k], acc[k]);
+      }
+      store8(z + ((size_t)y * W + xx) * C + chunk * 8, acc);
+    }
+  }
+}
+
+// z: (H, W, 64) T; s, b: 64 f32; w: (9, 64) f32; aux_c, aux_m, noise: (H, W)
+// f32; partial: one f32 a block.
+template <typename T>
+__global__ void __launch_bounds__(ETHREADS)
+last_fwd_k(const T* __restrict__ z, const float* __restrict__ s,
+           const float* __restrict__ b, const float* __restrict__ w,
+           const float* __restrict__ aux_c, const float* __restrict__ aux_m,
+           float* __restrict__ noise, float* __restrict__ partial, int H,
+           int W, int tiles_x, int ntiles) {
+  // qs[p * 9 + t]: halo pixel p's product with tap t, sum_c a[p][c] w[t][c]
+  __shared__ float qs[EHH * EHW * 9];
+  __shared__ float red[EWARPS];
+  const int tid = threadIdx.x, chunk = tid & 7;
+  // The weights stay in registers, 72 a thread, and a multiprocessor holds
+  // one block. Read from shared memory instead (128 registers, two blocks)
+  // the kernel took 0.149 ms in place of 0.131 ms at 540 x 960 on an H100:
+  // it waits on its own instructions, not on device memory.
+  float wr[9][8], ps[8], pb[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    ps[k] = s[chunk * 8 + k];
+    pb[k] = b[chunk * 8 + k];
+#pragma unroll
+    for (int t = 0; t < 9; ++t) wr[t][k] = round_bf16(w[t * C + chunk * 8 + k]);
+  }
+  float loss = 0.f;
+
+  constexpr int NB = sizeof(T) == 2 ? 4 : 2;  // loads in flight a thread
+  constexpr int NTASK = (EHH * EHW * 8 + ETHREADS - 1) / ETHREADS;
+  constexpr int NIT = (NTASK + NB - 1) / NB * NB;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int y0 = (tile / tiles_x) * ETH, x0 = (tile % tiles_x) * ETW;
+    __syncthreads();  // the previous tile's gather is done with qs
+#pragma unroll
+    for (int i0 = 0; i0 < NIT; i0 += NB) {
+      Chunk<T> raw[NB];
+      bool inside[NB];
+#pragma unroll
+      for (int i = 0; i < NB; ++i) {
+        const int p = (tid + (i0 + i) * ETHREADS) >> 3;
+        const int hy = p / EHW, hx = p - hy * EHW;
+        const int y = y0 + hy - 1, x = x0 + hx - 1;
+        inside[i] = p < EHH * EHW && y >= 0 && y < H && x >= 0 && x < W;
+        if (inside[i]) ldg(raw[i], z + ((size_t)y * W + x) * C + chunk * 8);
+      }
+#pragma unroll
+      for (int i = 0; i < NB; ++i) {
+        const int p = (tid + (i0 + i) * ETHREADS) >> 3;
+        float q[9];
+#pragma unroll
+        for (int t = 0; t < 9; ++t) q[t] = 0.f;
+        if (inside[i]) {  // zero padding of a: outside pixels give no product
+          float v[8];
+          unpack(raw[i], v);
+#pragma unroll
+          for (int k = 0; k < 8; ++k) {
+            const float a = round_bf16(fmaxf(affine(ps[k], v[k], pb[k]), 0.f));
+#pragma unroll
+            for (int t = 0; t < 9; ++t) q[t] = fmaf(a, wr[t][k], q[t]);
+          }
+        }
+        // over the pixel's eight chunks: lanes that differ in bits 0..2
+#pragma unroll
+        for (int t = 0; t < 9; ++t) {
+          q[t] += __shfl_xor_sync(FULL, q[t], 1);
+          q[t] += __shfl_xor_sync(FULL, q[t], 2);
+          q[t] += __shfl_xor_sync(FULL, q[t], 4);
+        }
+        if (p < EHH * EHW) {
+          float mine = q[0];
+#pragma unroll
+          for (int t = 1; t < 8; ++t) mine = chunk == t ? q[t] : mine;
+          qs[p * 9 + chunk] = mine;
+          if (chunk == 0) qs[p * 9 + 8] = q[8];
+        }
+      }
+    }
+    __syncthreads();
+    const int py = tid / ETW, px = tid - py * ETW;
+    const int y = y0 + py, x = x0 + px;
+    if (y < H && x < W) {
+      float n = 0.f;
+#pragma unroll
+      for (int t = 0; t < 9; ++t)
+        n += qs[((py + t / 3) * EHW + px + t % 3) * 9 + t];
+      const size_t i = (size_t)y * W + x;
+      noise[i] = n;
+      loss += fabsf(__fsub_rn(aux_c[i], __fmul_rn(aux_m[i], n)));
+    }
+  }
+
+#pragma unroll
+  for (int sh = 16; sh > 0; sh >>= 1) loss += __shfl_xor_sync(FULL, loss, sh);
+  if ((tid & 31) == 0) red[tid >> 5] = loss;
+  __syncthreads();
+  if (tid == 0) {
+    float sum = 0.f;
+#pragma unroll
+    for (int wi = 0; wi < EWARPS; ++wi) sum += red[wi];
+    partial[blockIdx.x] = sum;
+  }
+}
+
+// noise, aux_c, aux_m: (H, W) f32; z, g: (H, W, 64) T; w: (9, 64) f32;
+// vec: (4, 64) f32 = s_L, b_L, rstd_L, -mean_L * rstd_L;
+// partial: (blocks, 11, 64) f32 = nine taps of dW_out, sum gp, sum gp zhat.
+template <typename T>
+__global__ void __launch_bounds__(ETHREADS)
+last_bwd_k(const float* __restrict__ noise, const float* __restrict__ aux_c,
+           const float* __restrict__ aux_m, const T* __restrict__ z,
+           const float* __restrict__ w, const float* __restrict__ vec,
+           T* __restrict__ g, float* __restrict__ partial, int H, int W,
+           int tiles_x, int ntiles) {
+  __shared__ float es[EHH * EHW];  // -e with its halo
+  __shared__ __align__(16) float ws[9 * C];
+  __shared__ float red[EWARPS * BWD_SUMS * C];
+  const int tid = threadIdx.x, chunk = tid & 7, px = tid >> 3;
+  for (int i = tid; i < 9 * C; i += ETHREADS) ws[i] = round_bf16(w[i]);
+  float ps[8], pb[8], pr[8], pn[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    ps[k] = vec[0 * C + chunk * 8 + k];
+    pb[k] = vec[1 * C + chunk * 8 + k];
+    pr[k] = vec[2 * C + chunk * 8 + k];
+    pn[k] = vec[3 * C + chunk * 8 + k];
+  }
+  float acc[BWD_SUMS][8];
+#pragma unroll
+  for (int i = 0; i < BWD_SUMS; ++i)
+#pragma unroll
+    for (int k = 0; k < 8; ++k) acc[i][k] = 0.f;
+
+  constexpr int NB = sizeof(T) == 2 ? 4 : 2;  // loads in flight a thread
+  static_assert(ETH % NB == 0, "whole batches of tile rows");
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int y0 = (tile / tiles_x) * ETH, x0 = (tile % tiles_x) * ETW;
+    __syncthreads();  // ws is written; the previous tile is done with es
+    stage_halo(es, y0, x0, H, W, [&](size_t i) {
+      const float m = aux_m[i];
+      const float u = __fsub_rn(aux_c[i], __fmul_rn(m, noise[i]));
+      const float sgn = (float)((u > 0.f) - (u < 0.f));
+      return round_bf16(-m * sgn);
+    });
+    __syncthreads();
+    const int xx = x0 + px;
+#pragma unroll
+    for (int r0 = 0; r0 < ETH; r0 += NB) {
+      Chunk<T> raw[NB];
+      bool inside[NB];
+#pragma unroll
+      for (int i = 0; i < NB; ++i) {
+        const int y = y0 + r0 + i;
+        inside[i] = y < H && xx < W;
+        if (inside[i]) ldg(raw[i], z + ((size_t)y * W + xx) * C + chunk * 8);
+      }
+#pragma unroll
+      for (int i = 0; i < NB; ++i) {
+        if (!inside[i]) continue;
+        const int py = r0 + i;
+        float zv[8], a[8], gv[8];
+        unpack(raw[i], zv);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          a[k] = round_bf16(fmaxf(affine(ps[k], zv[k], pb[k]), 0.f));
+          gv[k] = 0.f;
+        }
+        // tap t of the forward read a at p + (dy - 1, dx - 1): p's cotangent
+        // and p's share of dW_out[t] come from -e at p - (dy - 1, dx - 1)
+#pragma unroll
+        for (int t = 0; t < 9; ++t) {
+          const float ne = es[(py + 2 - t / 3) * EHW + px + 2 - t % 3];
+          float wv[8];
+          *reinterpret_cast<float4*>(wv) =
+              *reinterpret_cast<const float4*>(ws + t * C + chunk * 8);
+          *reinterpret_cast<float4*>(wv + 4) =
+              *reinterpret_cast<const float4*>(ws + t * C + chunk * 8 + 4);
+#pragma unroll
+          for (int k = 0; k < 8; ++k) {
+            gv[k] = fmaf(ne, wv[k], gv[k]);
+            acc[t][k] = fmaf(a[k], ne, acc[t][k]);
+          }
+        }
+        store8(g + ((size_t)(y0 + py) * W + xx) * C + chunk * 8, gv);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const float gp = affine(ps[k], zv[k], pb[k]) > 0.f ? gv[k] : 0.f;
+          acc[9][k] += gp;
+          acc[10][k] = fmaf(gp, fmaf(pr[k], zv[k], pn[k]), acc[10][k]);
+        }
+      }
+    }
+  }
+  block_sums<BWD_SUMS>(acc, red, partial + (size_t)blockIdx.x * BWD_SUMS * C);
+}
+
+// da, z1: (H, W, 64) T; x: (H, W) T; partial: (blocks, 9, 64) f32.
+template <typename T>
+__global__ void __launch_bounds__(ETHREADS)
+first_dw_k(const T* __restrict__ da, const T* __restrict__ z1,
+           const T* __restrict__ x, float* __restrict__ partial, int H, int W,
+           int tiles_x, int ntiles) {
+  __shared__ float xs[EHH * EHW];
+  __shared__ float red[EWARPS * 9 * C];
+  const int tid = threadIdx.x, chunk = tid & 7, px = tid >> 3;
+  float acc[9][8];
+#pragma unroll
+  for (int t = 0; t < 9; ++t)
+#pragma unroll
+    for (int k = 0; k < 8; ++k) acc[t][k] = 0.f;
+
+  constexpr int NB = sizeof(T) == 2 ? 4 : 2;  // rows in flight, two loads each
+  static_assert(ETH % NB == 0, "whole batches of tile rows");
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int y0 = (tile / tiles_x) * ETH, x0 = (tile % tiles_x) * ETW;
+    __syncthreads();  // the previous tile's rows are done with xs
+    stage_halo(xs, y0, x0, H, W,
+               [&](size_t i) { return round_bf16(ldf(x + i)); });
+    __syncthreads();
+    const int xx = x0 + px;
+#pragma unroll
+    for (int r0 = 0; r0 < ETH; r0 += NB) {
+      Chunk<T> rd[NB], rz[NB];
+      bool inside[NB];
+#pragma unroll
+      for (int i = 0; i < NB; ++i) {
+        const int y = y0 + r0 + i;
+        inside[i] = y < H && xx < W;
+        if (inside[i]) {
+          const size_t off = ((size_t)y * W + xx) * C + chunk * 8;
+          ldg(rd[i], da + off);
+          ldg(rz[i], z1 + off);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < NB; ++i) {
+        if (!inside[i]) continue;
+        const int py = r0 + i;
+        float gp[8], zv[8];
+        unpack(rd[i], gp);
+        unpack(rz[i], zv);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) gp[k] = zv[k] > 0.f ? round_bf16(gp[k]) : 0.f;
+#pragma unroll
+        for (int t = 0; t < 9; ++t) {
+          const float v = xs[(py + t / 3) * EHW + px + t % 3];
+#pragma unroll
+          for (int k = 0; k < 8; ++k) acc[t][k] = fmaf(v, gp[k], acc[t][k]);
+        }
+      }
+    }
+  }
+  block_sums<9>(acc, red, partial + (size_t)blockIdx.x * 9 * C);
+}
+
+struct Tiles {
+  int tiles_x, ntiles;
+};
+
+inline Tiles tiles_of(int H, int W) {
+  const int tiles_x = (W + ETW - 1) / ETW;
+  return {tiles_x, tiles_x * ((H + ETH - 1) / ETH)};
+}
+
+// The persistent grid of `kern` over the image's tiles; see persistent_grid.
+template <typename K>
+int ends_grid(K kern, const Tiles& t, int max_blocks, Resident* cache,
+              int* grid) {
+  return persistent_grid(kern, ETHREADS, 0, t.ntiles, max_blocks, cache, grid);
+}
+
+template <typename T>
+int first_conv(const void* x, const float* w, void* z, int H, int W,
+               void* stream) {
+  static Resident resident;
+  auto kern = first_conv_k<T>;
+  const Tiles t = tiles_of(H, W);
+  int grid = 0;
+  int rc = ends_grid(kern, t, 0, &resident, &grid);
+  if (rc != 0) return rc;
+  kern<<<grid, ETHREADS, 0, (cudaStream_t)stream>>>(
+      static_cast<const T*>(x), w, static_cast<T*>(z), H, W, t.tiles_x,
+      t.ntiles);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int last_loss_fwd(const void* z, const float* s, const float* b,
+                  const float* w, const float* aux_c, const float* aux_m,
+                  float* noise, float* loss, float* partial, int max_blocks,
+                  int H, int W, void* stream) {
+  static Resident resident;
+  auto kern = last_fwd_k<T>;
+  const Tiles t = tiles_of(H, W);
+  int grid = 0;
+  int rc = ends_grid(kern, t, max_blocks, &resident, &grid);
+  if (rc != 0) return rc;
+  kern<<<grid, ETHREADS, 0, (cudaStream_t)stream>>>(
+      static_cast<const T*>(z), s, b, w, aux_c, aux_m, noise, partial, H, W,
+      t.tiles_x, t.ntiles);
+  if ((rc = (int)cudaGetLastError()) != 0) return rc;
+  return finish(partial, grid, 1, loss, stream);
+}
+
+template <typename T>
+int last_loss_bwd(const float* noise, const float* aux_c, const float* aux_m,
+                  const void* z, const float* w, const float* vec, void* g,
+                  float* sums, float* partial, int max_blocks, int H, int W,
+                  void* stream) {
+  static Resident resident;
+  auto kern = last_bwd_k<T>;
+  const Tiles t = tiles_of(H, W);
+  int grid = 0;
+  int rc = ends_grid(kern, t, max_blocks, &resident, &grid);
+  if (rc != 0) return rc;
+  kern<<<grid, ETHREADS, 0, (cudaStream_t)stream>>>(
+      noise, aux_c, aux_m, static_cast<const T*>(z), w, vec,
+      static_cast<T*>(g), partial, H, W, t.tiles_x, t.ntiles);
+  if ((rc = (int)cudaGetLastError()) != 0) return rc;
+  return finish(partial, grid, BWD_SUMS * C, sums, stream);
+}
+
+template <typename T>
+int first_dw(const void* da, const void* z1, const void* x, float* dw,
+             float* partial, int max_blocks, int H, int W, void* stream) {
+  static Resident resident;
+  auto kern = first_dw_k<T>;
+  const Tiles t = tiles_of(H, W);
+  int grid = 0;
+  int rc = ends_grid(kern, t, max_blocks, &resident, &grid);
+  if (rc != 0) return rc;
+  kern<<<grid, ETHREADS, 0, (cudaStream_t)stream>>>(
+      static_cast<const T*>(da), static_cast<const T*>(z1),
+      static_cast<const T*>(x), partial, H, W, t.tiles_x, t.ntiles);
+  if ((rc = (int)cudaGetLastError()) != 0) return rc;
+  return finish(partial, grid, 9 * C, dw, stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Each returns a cudaError_t code: 0 on launches that were accepted. H and W
+// are positive; is_f32 names T; every array is contiguous.
+
+// x: (H, W) T; w: (3, 3, 1, 64) f32; z: (1, H, W, 64) T out.
+int f2f_first_conv(const void* x, int is_f32, const float* w, void* z, int H,
+                   int W, void* stream) {
+  if (H <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
+  return is_f32 ? first_conv<float>(x, w, z, H, W, stream)
+                : first_conv<__nv_bfloat16>(x, w, z, H, W, stream);
+}
+
+// z: (1, H, W, 64) T; s, b: (64,) f32; w: (3, 3, 64, 1) f32; aux_c, aux_m:
+// (H, W) f32; noise: (H, W) f32 out; loss: one f32 out; partial: (max_blocks,)
+// f32 scratch.
+int f2f_last_loss_fwd(const void* z, int is_f32, const float* s,
+                      const float* b, const float* w, const float* aux_c,
+                      const float* aux_m, float* noise, float* loss,
+                      float* partial, int max_blocks, int H, int W,
+                      void* stream) {
+  if (H <= 0 || W <= 0 || max_blocks <= 0) return (int)cudaErrorInvalidValue;
+  return is_f32 ? last_loss_fwd<float>(z, s, b, w, aux_c, aux_m, noise, loss,
+                                       partial, max_blocks, H, W, stream)
+                : last_loss_fwd<__nv_bfloat16>(z, s, b, w, aux_c, aux_m, noise,
+                                               loss, partial, max_blocks, H, W,
+                                               stream);
+}
+
+// noise, aux_c, aux_m: (H, W) f32; z: (1, H, W, 64) T; w: (3, 3, 64, 1) f32;
+// vec: (4, 64) f32; g: (1, H, W, 64) T out; sums: (11, 64) f32 out = dW_out
+// (3, 3, 64, 1) then the two BatchNorm sums; partial: (max_blocks, 11, 64)
+// f32 scratch.
+int f2f_last_loss_bwd(const float* noise, const float* aux_c,
+                      const float* aux_m, const void* z, int is_f32,
+                      const float* w, const float* vec, void* g, float* sums,
+                      float* partial, int max_blocks, int H, int W,
+                      void* stream) {
+  if (H <= 0 || W <= 0 || max_blocks <= 0) return (int)cudaErrorInvalidValue;
+  return is_f32 ? last_loss_bwd<float>(noise, aux_c, aux_m, z, w, vec, g, sums,
+                                       partial, max_blocks, H, W, stream)
+                : last_loss_bwd<__nv_bfloat16>(noise, aux_c, aux_m, z, w, vec,
+                                               g, sums, partial, max_blocks, H,
+                                               W, stream);
+}
+
+// da, z1: (1, H, W, 64) T; x: (H, W) T; dw: (3, 3, 1, 64) f32 out; partial:
+// (max_blocks, 9, 64) f32 scratch.
+int f2f_first_dw(const void* da, const void* z1, const void* x, int is_f32,
+                 float* dw, float* partial, int max_blocks, int H, int W,
+                 void* stream) {
+  if (H <= 0 || W <= 0 || max_blocks <= 0) return (int)cudaErrorInvalidValue;
+  return is_f32 ? first_dw<float>(da, z1, x, dw, partial, max_blocks, H, W,
+                                  stream)
+                : first_dw<__nv_bfloat16>(da, z1, x, dw, partial, max_blocks,
+                                          H, W, stream);
+}
+
+const char* f2f_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+}  // extern "C"

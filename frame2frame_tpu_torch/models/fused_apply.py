@@ -135,6 +135,17 @@ def _eval_forward(model, x, store_dtype, eval_impl):
     return x - noise if model.residual else noise
 
 
+@torch.no_grad()
+def update_running_stats(mids, means, vars_):
+    """``new = 0.9 * old + 0.1 * batch`` in place on the running statistics
+    of ``mids`` (the (conv, bn) pairs), from the batch statistics (L, 64)."""
+    for key, batch in (("running_mean", means), ("running_var", vars_)):
+        bufs = [getattr(bn, key) for _, bn in mids]
+        torch._foreach_mul_(bufs, BN_MOMENTUM)
+        torch._foreach_add_(bufs, list(batch.unbind(0)),
+                            alpha=1 - BN_MOMENTUM)
+
+
 def fused_train_apply(model, x, store_dtype=torch.bfloat16,
                       mid_stack=fused_mid_stack):
     """Training-mode DnCNN forward with batch statistics.
@@ -157,12 +168,7 @@ def fused_train_apply(model, x, store_dtype=torch.bfloat16,
     betas = torch.stack([bn.bias for _, bn in mids])
     a_out, means, vars_ = mid_stack(ws, gammas, betas, a1, store_dtype)
     noise = end_conv(a_out, model.conv_out.weight).float()
-    with torch.no_grad():
-        for key, batch in (("running_mean", means), ("running_var", vars_)):
-            bufs = [getattr(bn, key) for _, bn in mids]
-            torch._foreach_mul_(bufs, BN_MOMENTUM)
-            torch._foreach_add_(bufs, list(batch.unbind(0)),
-                                alpha=1 - BN_MOMENTUM)
+    update_running_stats(mids, means, vars_)
     return x - noise if model.residual else noise
 
 

@@ -20,6 +20,12 @@ Counterparts of ``frame2frame_tpu/ops/fused_stack.py``:
   previous layer's BN-backward sums.
 - ``fused_mid_stack`` <- ``fused_mid_stack`` (``_fused_fwd`` / ``_fused_bwd``):
   (conv3x3 + BatchNorm(train) + ReLU)^L as a ``torch.autograd.Function``.
+  Its layer loops, ``mid_forward`` and ``mid_backward``, are also what the
+  whole-iteration step (``train/flat_step.py``) runs between the end kernels
+  of ``ops/fused_ends.py``.
+
+``KERNELS`` is the launch registry of all of the port's kernels, the end
+kernels included (``launch_counts``, ``reset_launch_counts``).
 
 Activations are NHWC ``(B, H, W, 64)``, contiguous, bf16 or f32. The TPU
 pair-packed flat layout is not carried over: a batch is the batch
@@ -50,12 +56,20 @@ import ctypes
 import functools
 
 import torch
-import torch.nn.functional as F
 
 from ._build import load
+from ._common import (
+    C,
+    _bind_error_string,
+    _conv_f32,
+    _on_current_cuda,
+    _partial_rows,
+    _raise_on,
+    _round_operand,
+)
+from .fused_ends import first_conv, first_dw, last_loss_bwd, last_loss_fwd
 
 EPS = 1e-5
-C = 64
 
 
 def _affine_from_stats(mean, var, gamma, beta):
@@ -63,13 +77,6 @@ def _affine_from_stats(mean, var, gamma, beta):
     rstd = torch.rsqrt(var + EPS)
     s = gamma * rstd
     return s, beta - mean * s, rstd
-
-
-def _conv_f32(a, w):
-    """3x3 SAME conv of NHWC f32 ``a`` with HWIO ``w``, in f32."""
-    out = F.conv2d(a.permute(0, 3, 1, 2), w.float().permute(3, 2, 0, 1),
-                   padding=1)
-    return out.permute(0, 2, 3, 1)
 
 
 def fwd_layer_plain(z_prev, w, s, b):
@@ -119,8 +126,7 @@ def _lib():
         fn.argtypes = [vp, ci, vp, vp, vp, vp, ci, ci, ci, vp]
     lib.f2f_fwd_layer_train.restype = ci
     lib.f2f_fwd_layer_train.argtypes = [vp, ci] + [vp] * 6 + [ci] * 4 + [vp]
-    lib.f2f_error_string.restype = ctypes.c_char_p
-    lib.f2f_error_string.argtypes = [ci]
+    _bind_error_string(lib)
     return lib
 
 
@@ -167,12 +173,6 @@ def fwd_layer_eval(a_prev, w, s, b):
     out = _launch("fwd_layer_eval", a_prev, w, s, b)
     fwd_layer_eval.launches += 1
     return out
-
-
-def _round_operand(x, mma_bf16):
-    """A dot operand in f32, rounded to bf16 first if ``mma_bf16``."""
-    x = x.float()
-    return x.bfloat16().float() if mma_bf16 else x
 
 
 def fwd_layer_train_plain(z_prev, w, s, b, mma_bf16=False):
@@ -231,29 +231,8 @@ def _lib_bwd():
     lib.f2f_bwd_layer.restype = ci
     lib.f2f_bwd_layer.argtypes = ([vp, vp, vp, ci, vp, vp, ci]
                                   + [vp] * 6 + [ci] * 4 + [vp])
-    lib.f2f_error_string.restype = ctypes.c_char_p
-    lib.f2f_error_string.argtypes = [ci]
+    _bind_error_string(lib)
     return lib
-
-
-def _raise_on(lib, name, rc):
-    if rc != 0:
-        msg = lib.f2f_error_string(rc).decode()
-        raise RuntimeError(f"{name} launch failed: {msg} (cudaError {rc})")
-
-
-@functools.cache
-def _partial_rows(index):
-    """Rows of per-block partial sums a kernel may write on CUDA device
-    ``index``: at most two of its persistent blocks fit a multiprocessor."""
-    return 2 * torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def _on_current_cuda(name, x):
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for {x.device}")
-    if x.device.index != torch.cuda.current_device():
-        raise ValueError(f"{name}: {x.device} is not the current CUDA device")
 
 
 def fwd_layer_train(z_prev, w, s, b):
@@ -333,7 +312,8 @@ def bwd_layer(g, z_i, z_prev, w, vecs, first_layer=False):
     return da, dw, stats
 
 
-KERNELS = (fwd_layer, fwd_layer_train, fwd_layer_eval, bwd_layer)
+KERNELS = (fwd_layer, fwd_layer_train, fwd_layer_eval, bwd_layer,
+           first_conv, last_loss_fwd, last_loss_bwd, first_dw)
 
 
 def reset_launch_counts():
@@ -350,44 +330,95 @@ def launch_counts():
 
 # ---------------------------------------------------------------------------
 # the differentiable mid stack
+#
+# Between two layer calls stand only a few (64,)-sized ops, each a launch
+# that costs the host more than the device: whatever does not depend on the
+# neighbouring layer's result is computed for all layers at once.
+
+
+def mid_forward(fwd, wk, gammas, betas, z_in, count):
+    """The forward of (conv3x3 + BatchNorm(train) + ReLU)^L up to the last
+    conv: ``fwd`` (``fwd_layer_train`` or its plain version) layer by layer.
+
+    wk: ``kernel_weights`` of (L, 3, 3, 64, 64); z_in: (B, H, W, 64) in the
+    chain's dtype, the stack input before its ReLU (or after: the first
+    prologue is the identity affine and a ReLU); count: B * H * W. Returns
+    (zs, the L raw conv outputs; ss, bs (L + 1, 64), the prologue affines,
+    row i + 1 layer i's BatchNorm; means, vars (L, 64))."""
+    s = torch.ones(C, dtype=torch.float32, device=z_in.device)
+    b = torch.zeros_like(s)
+    cur = z_in
+    zs, ss, bs, moments = [], [s], [b], []
+    for i in range(wk.shape[0]):
+        cur, stats = fwd(cur, wk[i], s, b)
+        mom = stats / count  # (E[z], E[z^2])
+        var = torch.addcmul(mom[1], mom[0], mom[0], value=-1.0)
+        s = gammas[i] * torch.rsqrt(var + EPS)
+        b = torch.addcmul(betas[i], mom[0], s, value=-1.0)
+        zs.append(cur)
+        ss.append(s)
+        bs.append(b)
+        moments.append(mom)
+    moments = torch.stack(moments)
+    means = moments[:, 0].contiguous()
+    vars_ = torch.addcmul(moments[:, 1], means, means, value=-1.0)
+    return zs, torch.stack(ss), torch.stack(bs), means, vars_
+
+
+def bn_norm(means, vars_):
+    """(rstd, -mean * rstd) of the batch statistics."""
+    rstd = torch.rsqrt(vars_ + EPS)
+    return rstd, -means * rstd
+
+
+def mid_backward(bwd, wk, zs, z_in, ss, bs, means, rstd, nmr, count, g,
+                 dbeta, dgamma):
+    """The backward of ``mid_forward``: ``bwd`` (``bwd_layer`` or its plain
+    version) from the last layer down.
+
+    g: cotangent of the last activation relu(ss[L] * zs[-1] + bs[L]), in the
+    chain's dtype; dbeta, dgamma: (64,) the last BatchNorm's backward sums
+    sum gt and sum gt * zhat_L with gt = g * [activation > 0]; rstd, nmr:
+    ``bn_norm`` of the batch statistics. Returns (dW (L, 3, 3, 64, 64),
+    dgammas, dbetas (L, 64), the cotangent of relu(z_in))."""
+    L = len(zs)
+    # dz_i = A_i gt + B_i z_i + C_i with A_i = gamma_i rstd_i = ss[i + 1],
+    # B_i = k1_i dgamma_i, C_i = k2_i dgamma_i + k3_i dbeta_i: all but
+    # the two sums, which the layer above delivers, is known beforehand
+    k3 = ss[1:] / -count
+    k1 = k3 * rstd
+    k2 = -k1 * means
+    zero = torch.zeros_like(ss[1:])
+    vecs = torch.stack([
+        ss[1:], bs[1:], zero, zero, ss[:-1], bs[:-1],
+        torch.cat([ss[:1], rstd[:-1]]), torch.cat([bs[:1], nmr[:-1]])], 1)
+    dws, dgammas, dbetas = [None] * L, [None] * L, [None] * L
+    for i in range(L - 1, -1, -1):
+        torch.mul(k1[i], dgamma, out=vecs[i, V_B])
+        torch.mul(k2[i], dgamma, out=vecs[i, V_C])
+        vecs[i, V_C].addcmul_(k3[i], dbeta)
+        g, dws[i], stats = bwd(g, zs[i], zs[i - 1] if i > 0 else z_in,
+                               wk[i], vecs[i], i == 0)
+        dgammas[i], dbetas[i] = dgamma, dbeta
+        dbeta, dgamma = stats[0], stats[1]
+    return torch.stack(dws), torch.stack(dgammas), torch.stack(dbetas), g
 
 
 class _FusedMidStack(torch.autograd.Function):
     """(conv3x3 + BatchNorm(train) + ReLU)^L over ``fwd`` and ``bwd``, the
-    layer functions (the kernel wrappers, or their plain versions).
-
-    Between two layer calls stand only a few (64,)-sized ops, each a launch
-    that costs the host more than the device: whatever does not depend on the
-    neighbouring layer's result is computed for all layers at once."""
+    layer functions (the kernel wrappers, or their plain versions)."""
 
     @staticmethod
     def forward(ctx, ws, gammas, betas, a1, store_dtype, fwd, bwd):
-        L = ws.shape[0]
         B, H, W, _ = a1.shape
         count = B * H * W
         wk = kernel_weights(ws)
         a_in = a1.to(store_dtype).contiguous()
-        cur = a_in
-        s = torch.ones(C, dtype=torch.float32, device=a1.device)
-        b = torch.zeros_like(s)
-        zs, ss, bs, moments = [], [s], [b], []
-        for i in range(L):
-            cur, stats = fwd(cur, wk[i], s, b)
-            mom = stats / count  # (E[z], E[z^2])
-            var = torch.addcmul(mom[1], mom[0], mom[0], value=-1.0)
-            s = gammas[i] * torch.rsqrt(var + EPS)
-            b = torch.addcmul(betas[i], mom[0], s, value=-1.0)
-            zs.append(cur)
-            ss.append(s)
-            bs.append(b)
-            moments.append(mom)
+        zs, ss, bs, means, vars_ = mid_forward(fwd, wk, gammas, betas, a_in,
+                                               count)
         # the last BN affine + ReLU in f32, outside the kernels
-        a_out = torch.relu(cur.float() * s + b)
-        moments = torch.stack(moments)
-        means = moments[:, 0].contiguous()
-        vars_ = torch.addcmul(moments[:, 1], means, means, value=-1.0)
-        ctx.save_for_backward(wk, gammas, a_in, means, vars_,
-                              torch.stack(ss), torch.stack(bs), *zs)
+        a_out = torch.relu(zs[-1].float() * ss[-1] + bs[-1])
+        ctx.save_for_backward(wk, a_in, means, vars_, ss, bs, *zs)
         ctx.store_dtype, ctx.bwd, ctx.count = store_dtype, bwd, count
         ctx.a1_dtype = a1.dtype
         ctx.mark_non_differentiable(means, vars_)
@@ -395,40 +426,20 @@ class _FusedMidStack(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, da_out, _dm, _dv):
-        wk, gammas, a_in, means, vars_, ss, bs, *zs = ctx.saved_tensors
-        L, count = len(zs), ctx.count
-        rstd = torch.rsqrt(vars_ + EPS)
-        nmr = -means * rstd
+        wk, a_in, means, vars_, ss, bs, *zs = ctx.saved_tensors
+        rstd, nmr = bn_norm(means, vars_)
         # cotangent of z_L through the last BN affine + ReLU, in plain ops;
         # the mask is the forward's expression on the stored z_L
         g = da_out.to(ctx.store_dtype).contiguous()
         zl = zs[-1].float()
-        gt = g.float() * (zl * ss[L] + bs[L] > 0)
+        gt = g.float() * (zl * ss[-1] + bs[-1] > 0)
         dbeta = gt.sum((0, 1, 2))
         dgamma = (gt * (zl * rstd[-1] + nmr[-1])).sum((0, 1, 2))
         del zl, gt
-
-        # dz_i = A_i gt + B_i z_i + C_i with A_i = gamma_i rstd_i = ss[i + 1],
-        # B_i = k1_i dgamma_i, C_i = k2_i dgamma_i + k3_i dbeta_i: all but
-        # the two sums, which the layer above delivers, is known beforehand
-        k3 = ss[1:] / -count
-        k1 = k3 * rstd
-        k2 = -k1 * means
-        zero = torch.zeros_like(ss[1:])
-        vecs = torch.stack([
-            ss[1:], bs[1:], zero, zero, ss[:-1], bs[:-1],
-            torch.cat([ss[:1], rstd[:-1]]), torch.cat([bs[:1], nmr[:-1]])], 1)
-        dws, dgammas, dbetas = [None] * L, [None] * L, [None] * L
-        for i in range(L - 1, -1, -1):
-            torch.mul(k1[i], dgamma, out=vecs[i, V_B])
-            torch.mul(k2[i], dgamma, out=vecs[i, V_C])
-            vecs[i, V_C].addcmul_(k3[i], dbeta)
-            g, dws[i], stats = ctx.bwd(g, zs[i], zs[i - 1] if i > 0 else a_in,
-                                       wk[i], vecs[i], i == 0)
-            dgammas[i], dbetas[i] = dgamma, dbeta
-            dbeta, dgamma = stats[0], stats[1]
-        return (torch.stack(dws), torch.stack(dgammas), torch.stack(dbetas),
-                g.to(ctx.a1_dtype), None, None, None)
+        dws, dgammas, dbetas, g = mid_backward(
+            ctx.bwd, wk, zs, a_in, ss, bs, means, rstd, nmr, ctx.count, g,
+            dbeta, dgamma)
+        return (dws, dgammas, dbetas, g.to(ctx.a1_dtype), None, None, None)
 
 
 def fused_mid_stack(ws, gammas, betas, a1, store_dtype=torch.bfloat16):

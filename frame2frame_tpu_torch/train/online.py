@@ -2,10 +2,13 @@
 serving entry points of the online denoiser.
 
 Counterpart of ``frame2frame_tpu/train/online.py``: ``torch_adam``,
-``make_denoise``, ``make_online_step`` (the body that runs
-``fused_train_apply``, with the end convs and the loss in plain ops) and
-``OnlineDenoiser`` with ``process_frame``, ``denoise_only`` and
-``denoise_batch``. The reference hot loop (blind_denoising.py:187-256) per
+``make_denoise``, ``make_online_step`` and ``OnlineDenoiser`` with
+``process_frame``, ``denoise_only`` and ``denoise_batch``.
+``make_online_step`` takes the whole-iteration flat step
+(``train/flat_step.py``: every layer and the loss on kernels) where it is
+eligible, as the JAX package does on its accelerator, else the body that runs
+``fused_train_apply`` with the end convs and the loss in plain ops. The
+reference hot loop (blind_denoising.py:187-256) per
 frame: warp the previous noisy frame by the flow and mask occlusions, once;
 ``iters`` Adam updates of the DnCNN in training mode on the summed masked L1
 loss; then the eval-mode denoise with the updated weights. PyTorch runs
@@ -33,6 +36,7 @@ from ..models.fused_apply import (
 )
 from ..ops.warp import bilinear_warp_with_mask, occlusion_mask
 from ..utils.device import resolve_device
+from .flat_step import eligible, run_flat_scan
 
 BATCH_ROUTES = ("stacked", "perframe")
 
@@ -107,7 +111,8 @@ def make_denoise(model, residual_model=False):
     return denoise
 
 
-def make_online_step(model, tx, iters=20, residual_model=False):
+def make_online_step(model, tx, iters=20, residual_model=False,
+                     flat_step=None):
     """Build the per-frame program
 
         step(opt_state, cur, prev, flow, eval_impl=None)
@@ -116,15 +121,39 @@ def make_online_step(model, tx, iters=20, residual_model=False):
     cur/prev: (H, W, C) in [0, 1]; flow: (H, W, 2) mapping cur -> prev
     coords. The mask and the warped target depend only on prev and flow, so
     they are built once per frame. ``model``'s parameters and running
-    statistics are updated in place; the optimizer state is returned."""
+    statistics are updated in place; the optimizer state is returned.
+
+    ``flat_step``: None takes the flat step (``flat_step.run_flat_scan``)
+    where ``flat_step.eligible``, else the per-iteration body on
+    ``fused_train_apply``; False always takes that body; True raises where
+    the flat step is not eligible. (The JAX package switches with the
+    environment variable ``F2F_FLATSTEP``; the port reads no implementation
+    from the environment.)"""
     denoise = make_denoise(model, residual_model=residual_model)
     flat = JaxRavel(model)
+
+    def use_flat_step(x_shape):
+        if flat_step is False:
+            return False
+        ok = eligible(model, x_shape, residual_model)
+        if flat_step and not ok:
+            raise ValueError(
+                "flat_step=True, but the flat step does not cover this model "
+                f"on frames of shape {tuple(x_shape)}: it needs 64 features, "
+                "a mid stack, one channel and residual_model == "
+                "model.residual")
+        return ok
 
     def step(opt_state, cur, prev, flow, eval_impl=None):
         with torch.no_grad():
             warped, mask = bilinear_warp_with_mask(prev, flow)
             mask = occlusion_mask(flow, mask)
             target = mask * warped
+        if use_flat_step(cur.shape):
+            opt_state, losses = run_flat_scan(model, tx, iters, opt_state,
+                                              cur, mask, target, flat=flat)
+            deno = denoise(cur, train=False, eval_impl=eval_impl)
+            return opt_state, deno, losses
         losses = []
         for _ in range(iters):
             with torch.enable_grad():
@@ -162,13 +191,14 @@ class OnlineDenoiser:
     ``lr``, ``weight_decay``, ``iters``: the fine-tune's Adam and its updates
     per frame; ``batch_route``: default ``denoise_batch`` route, "stacked" or
     "perframe"; ``eval_impl``: "affine" (default), "act-bf16" or "act-f32";
+    ``flat_step``: the fine-tune's route, as ``make_online_step`` takes it;
     ``device``: None means the CUDA card, and raises where there is none.
     The optimizer state ``opt_state`` persists across frames.
     """
 
     def __init__(self, model, variables, lr=5e-5, weight_decay=1e-5, iters=20,
                  residual_model=False, batch_route="stacked", eval_impl=None,
-                 device=None):
+                 device=None, flat_step=None):
         if batch_route not in BATCH_ROUTES:
             raise ValueError(f"batch_route must be one of {BATCH_ROUTES}")
         _eval_impl(eval_impl)
@@ -183,7 +213,8 @@ class OnlineDenoiser:
         self._residual_model = residual_model
         self._denoise = make_denoise(self.model, residual_model)
         self._step = make_online_step(self.model, self.tx, iters=iters,
-                                      residual_model=residual_model)
+                                      residual_model=residual_model,
+                                      flat_step=flat_step)
 
     def _tensor(self, x):
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)

@@ -42,15 +42,17 @@ print(len(names))
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 13
+    assert int(res.stdout.split()[-1]) >= 16
 
 
 def test_port_sources_name_no_jax():
     pat = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|frame2frame_tpu)\b",
                      re.MULTILINE)
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) >= 14
+    assert len(files) >= 17
     assert PKG / "ops" / "warp.py" in files
+    assert PKG / "ops" / "fused_ends.py" in files
+    assert PKG / "train" / "flat_step.py" in files
     for f in files:
         assert not pat.search(f.read_text()), f
 
@@ -60,7 +62,8 @@ def test_cuda_sources_stand_alone():
     header only: no PyTorch header (a build takes seconds), no library of
     finished kernels."""
     sources = sorted((PKG / "csrc").glob("*.cu*"))
-    assert [f.name for f in sources] == ["conv3x3_c64.cuh", "fused_stack.cu",
+    assert [f.name for f in sources] == ["conv3x3_c64.cuh", "fused_ends.cu",
+                                         "fused_stack.cu",
                                          "fused_stack_bwd.cu"]
     allowed = {"cuda_bf16.h", "cuda_runtime.h", "stdint.h", "atomic",
                "type_traits", "conv3x3_c64.cuh"}
@@ -74,20 +77,25 @@ def test_cuda_sources_stand_alone():
 
 
 def test_kernel_wrappers_never_fall_back():
-    """``ops/fused_stack.py`` has no ``try`` at all, so no failed launch can
-    give way to a plain version; every kernel has its ``_plain`` twin, and a
-    wrapper reaches the plain version only behind a test of the tensor's
-    device."""
+    """The kernel modules and the flat step have no ``try`` at all, so no
+    failed launch can give way to a plain version; every kernel has its
+    ``_plain`` twin in its wrapper's module, and a wrapper reaches the plain
+    version only behind a test of the tensor's device."""
     from frame2frame_tpu_torch.ops import fused_stack as fs
 
-    path = PKG / "ops" / "fused_stack.py"
-    tree = ast.parse(path.read_text())
-    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+    trees = {}
+    for rel in ("ops/fused_stack.py", "ops/fused_ends.py", "ops/_common.py",
+                "train/flat_step.py"):
+        trees[rel] = ast.parse((PKG / rel).read_text())
+        assert not [n for n in ast.walk(trees[rel])
+                    if isinstance(n, ast.Try)], rel
     names = [k.__name__ for k in fs.KERNELS]
-    assert len(names) == len(set(names)) == 4
-    funcs = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
-    for name in names:
-        assert callable(getattr(fs, name + "_plain")), name
+    assert len(names) == len(set(names)) == 8
+    funcs = {n.name: n for rel in ("ops/fused_stack.py", "ops/fused_ends.py")
+             for n in trees[rel].body if isinstance(n, ast.FunctionDef)}
+    for k in fs.KERNELS:
+        name = k.__name__
+        assert callable(getattr(sys.modules[k.__module__], name + "_plain"))
         calls_plain = [
             n for n in ast.walk(funcs[name]) if isinstance(n, ast.If)
             and "device.type == 'cpu'" in ast.unparse(n.test)
@@ -98,22 +106,96 @@ def test_kernel_wrappers_never_fall_back():
         assert body.count(f"{name}.launches += 1") == 1, name
 
 
+def test_end_kernels_count_launches_without_the_registry():
+    """``ops/fused_ends.py`` imported alone, before ``ops/fused_stack.py``
+    and its registry, has its counters."""
+    code = """
+import sys
+from frame2frame_tpu_torch.ops import fused_ends as fe
+assert "frame2frame_tpu_torch.ops.fused_stack" not in sys.modules
+for k in (fe.first_conv, fe.last_loss_fwd, fe.last_loss_bwd, fe.first_dw):
+    assert k.launches == 0, k
+"""
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+
+
+def test_flat_step_reads_no_environment():
+    """The port picks no implementation from the environment: neither the
+    flat step nor the engine that chooses it names ``os.environ`` or the JAX
+    package's ``F2F_FLATSTEP`` switch in its code."""
+    for rel in ("train/flat_step.py", "ops/fused_ends.py"):
+        tree = ast.parse((PKG / rel).read_text())
+        names = {n.id for n in ast.walk(tree) if isinstance(n, ast.Name)}
+        assert "os" not in names, rel
+    tree = ast.parse((PKG / "train" / "online.py").read_text())
+    step = next(n for n in tree.body if isinstance(n, ast.FunctionDef)
+                and n.name == "make_online_step")
+    code = ast.unparse(ast.Module(
+        [n for n in step.body if not isinstance(n, ast.Expr)], []))
+    assert "environ" not in code and "F2F_" not in code
+
+
 def test_wrappers_refuse_a_device_without_a_kernel():
     """A tensor that is neither on the CPU nor on a CUDA card raises; it
     does not reach the plain version."""
+    from frame2frame_tpu_torch.ops import fused_ends as fe
     from frame2frame_tpu_torch.ops import fused_stack as fs
 
     x = torch.zeros(1, 4, 6, 64, device="meta")
     w = torch.zeros(3, 3, 64, 64, device="meta")
     v = torch.zeros(64, device="meta")
     vecs = torch.zeros(8, 64, device="meta")
+    img = torch.zeros(4, 6, device="meta")
+    w_in = torch.zeros(3, 3, 1, 64, device="meta")
+    w_out = torch.zeros(3, 3, 64, 1, device="meta")
     for call in (lambda: fs.fwd_layer(x, w, v, v),
                  lambda: fs.fwd_layer_train(x, w, v, v),
                  lambda: fs.fwd_layer_eval(x, w, v, v),
-                 lambda: fs.bwd_layer(x, x, x, w, vecs)):
+                 lambda: fs.bwd_layer(x, x, x, w, vecs),
+                 lambda: fe.first_conv(img, w_in),
+                 lambda: fe.last_loss_fwd(x, v, v, w_out, img, img),
+                 lambda: fe.last_loss_bwd(img, img, img, x, w_out, vecs[:4]),
+                 lambda: fe.first_dw(x, x, img)):
         with pytest.raises(ValueError, match="no kernel for meta"):
             call()
     assert not any(fs.launch_counts().values())
+
+
+@pytest.mark.parametrize("why", ["channels", "features", "convention"])
+def test_ineligible_model_takes_the_per_iteration_route(monkeypatch, why):
+    """Where ``eligible`` is false the engine runs the per-iteration body on
+    ``fused_train_apply`` (or the plain module), never ``run_flat_scan``;
+    ``flat_step=True`` raises instead."""
+    from frame2frame_tpu_torch.models.dncnn import DnCNN, to_jax_variables
+    from frame2frame_tpu_torch.train import flat_step
+    from frame2frame_tpu_torch.train import online
+
+    kw = {"channels": {"channels": 3}, "features": {"features": 32},
+          "convention": {}}[why]
+    model = DnCNN(num_layers=4, **kw)
+    residual_model = why == "convention"  # the model itself returns noise
+    c = model.channels
+    rng = np.random.default_rng(5)
+    cur, prev = rng.random((2, 6, 8, c)).astype(np.float32)
+    flow = np.zeros((6, 8, 2), np.float32)
+    assert not flat_step.eligible(model, cur.shape, residual_model)
+
+    def no_flat(*a, **k):
+        raise AssertionError("run_flat_scan on an ineligible model")
+
+    monkeypatch.setattr(online, "run_flat_scan", no_flat)
+    variables = to_jax_variables(model)
+    eng = online.OnlineDenoiser(model, variables, iters=2, device="cpu",
+                                residual_model=residual_model)
+    deno, losses = eng.process_frame(cur, prev, flow)
+    assert deno.shape == cur.shape and losses.shape == (2,)
+    forced = online.OnlineDenoiser(model, variables, iters=2, device="cpu",
+                                   residual_model=residual_model,
+                                   flat_step=True)
+    with pytest.raises(ValueError, match="flat_step=True"):
+        forced.process_frame(cur, prev, flow)
 
 
 def _leaves(tree, path=()):
