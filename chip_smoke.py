@@ -33,7 +33,22 @@ Phases, any failure exits non-zero:
    the same two frames fine-tuned by the plain module's autograd in f32,
    losses and PSNR compared, and the two routes against each other;
    host-clock and device times of ``process_frame`` on both routes;
-6. a JSON line of per-kernel numbers, then the card line, then the result
+6. the flow's inner loop (``tvl1_inner_loop``) against its plain version on
+   inputs built the way the solver builds them: tiny and odd frames, frames
+   that are all border, 135x240 and 540x960, a batch of four pairs that stop
+   at different iterations, with 1, 30 and 300 iterations allowed: equal
+   iteration counts, outputs within 1e-5, the same bits on two runs; times
+   a launch and an iteration beside the cost of an empty grid barrier;
+7. the flow path: the golden pair (tests/golden) through the solver on the
+   card against the reference binary's flows; a 540p flow with the denoising
+   parameters on the kernel against the same solver on the plain loop, its
+   end-point error against the sequence's analytic flow, the batched solver
+   against single solves; then ``AsyncFlowSolver`` feeding
+   ``process_frame`` its flows for two frames (its worker records the
+   solver's CUDA graph while the first frame is denoised, and replays it), the
+   replayed solve against the eager one, and the time of a flow alone and of
+   a frame with its flow prefetched on a second stream;
+8. a JSON line of per-kernel numbers, then the card line, then the result
    line ``{"ok": true, "device": {...}}``.
 
 The script imports torch, numpy and the port only.
@@ -53,6 +68,7 @@ from pathlib import Path
 import numpy as np
 
 REPO = Path(__file__).resolve().parent
+GOLDEN = REPO / "tests" / "golden"
 CKPT = REPO / "results" / "dncnn17_s25" / "checkpoint.msgpack"
 H, W, FEAT = 540, 960, 64
 NMID = 15
@@ -60,6 +76,7 @@ SIGMA = 25.0 / 255.0
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+F32_FLOP_PER_S = 67e12  # outside the tensor cores
 # max |kernel - plain| <= KERNEL_RTOL * max |plain|: the kernels round their
 # MMA operands to bf16 (weights, and f32 activations) where the plain
 # versions multiply in f32, and a bf16 output is itself rounded to 2^-8.
@@ -99,6 +116,26 @@ ENDS_F32_RTOL = 1e-4
 # shorter than their wrappers' host time
 HEAD_START_CYCLES = 5_000_000
 ITERS = 20
+# the flow's inner loop against its plain version: the same f32 operations
+# in the same order and the error summed in double on both sides, so they
+# differ only if a stop decision does; 1e-5 px is ten f32 steps of a flow of
+# a pixel
+FLOW_INNER_ATOL = 1e-5
+# golden flows of the reference binary: the JAX package's own bounds
+# (tests/test_tvl1_golden.py)
+GOLDEN_MEAN_TOL, GOLDEN_MAX_TOL = 1e-5, 5e-4
+# a 540p flow, kernel solver against plain solver, px
+FLOW_SOLVER_ATOL = 1e-3
+# median end-point error against the analytic flow on clean frames inside a
+# 10 px margin (the bound of the JAX package's known-shift test)
+FLOW_EPE_TOL, FLOW_MARGIN = 0.35, 10
+# PSNR of the fine-tune on TV-L1 flows of the noisy frames against the same
+# frames fine-tuned on the analytic flow
+FLOW_PSNR_TOL = 0.5  # dB
+FLOW_LAUNCHES_540P = 25  # 5 solved scales x 5 warps
+# f32 operations a pixel and iteration of the inner loop (thresholding 13,
+# primal and error 15, dual 26)
+FLOW_OPS_PER_PIXEL = 54
 REPLACES = {
     "fwd_layer": "frame2frame_tpu/ops/fused_stack.py:673",
     "fwd_layer_train": "frame2frame_tpu/ops/fused_stack.py:673",
@@ -108,6 +145,7 @@ REPLACES = {
     "last_loss_fwd": "frame2frame_tpu/ops/fused_ends.py:233",
     "last_loss_bwd": "frame2frame_tpu/ops/fused_ends.py:378",
     "first_dw": "frame2frame_tpu/ops/fused_ends.py:485",
+    "tvl1_inner_loop": "frame2frame_tpu/flow/tvl1_pallas.py:98",
 }
 SOURCES = {
     "fwd_layer": "frame2frame_tpu_torch/csrc/fused_stack.cu",
@@ -118,11 +156,56 @@ SOURCES = {
     "last_loss_fwd": "frame2frame_tpu_torch/csrc/fused_ends.cu",
     "last_loss_bwd": "frame2frame_tpu_torch/csrc/fused_ends.cu",
     "first_dw": "frame2frame_tpu_torch/csrc/fused_ends.cu",
+    "tvl1_inner_loop": "frame2frame_tpu_torch/csrc/tvl1_inner.cu",
 }
 
 
 class SmokeFailure(Exception):
     pass
+
+
+def read_png_gray8(path):
+    """An 8-bit greyscale, non-interlaced PNG as uint8 (H, W), decoded with
+    the standard library: the machine with the card may have no PIL."""
+    import struct
+    import zlib
+
+    data = Path(path).read_bytes()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: not a PNG file")
+    pos, idat, header = 8, b"", None
+    while pos < len(data):
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat += body
+    w, h, depth, colour, _, _, interlace = header
+    if (depth, colour, interlace) != (8, 0, 0):
+        raise ValueError(f"{path}: only 8-bit greyscale without interlacing")
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, w + 1)
+    out = np.zeros((h + 1, w + 1), np.int32)  # a zero row above, column left
+    for y in range(h):
+        kind, line = int(raw[y, 0]), raw[y, 1:].astype(np.int32)
+        up = out[y, 1:]
+        if kind in (0, 2):  # None, Up
+            out[y + 1, 1:] = (line + (up if kind else 0)) & 255
+            continue
+        for x in range(w):  # Sub, Average, Paeth: need the pixel to the left
+            a, b, c = int(out[y + 1, x]), int(up[x]), int(out[y, x])
+            if kind == 1:
+                pred = a
+            elif kind == 3:
+                pred = (a + b) // 2
+            elif kind == 4:
+                pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
+                pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+            else:
+                raise ValueError(f"{path}: unknown filter type {kind}")
+            out[y + 1, x + 1] = (int(line[x]) + pred) & 255
+    return out[1:, 1:].astype(np.uint8)
 
 
 def check(cond, msg):
@@ -153,9 +236,9 @@ def ptxas_entries(report):
             entry = None
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, flop_per_s=BF16_FLOP_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    t_ops = flops / flop_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1009,6 +1092,421 @@ def serving_phase(torch, fs, psnr):
     return launches, timings, variables, model
 
 
+def flow_inner_inputs(torch, shape, shifts, seed, p_scale=0.0):
+    """The ten arrays of one launch of the flow's inner loop on the card,
+    built the way ``_tvl1_scale`` builds them: a smooth texture pair a
+    ``(dx, dy)`` of ``shifts``, the second image and its gradients warped by
+    a starting flow, dual variables of scale ``p_scale``. One pair gives
+    ``(ny, nx)`` arrays, several ``(P, ny, nx)``."""
+    from frame2frame_tpu_torch.ops.grad import centered_gradient
+    from frame2frame_tpu_torch.ops.interp import bicubic_warp
+
+    rng = np.random.default_rng(seed)
+    ny, nx = shape
+    yy, xx = np.mgrid[0:ny, 0:nx].astype(np.float64)
+
+    def scene(y, x):
+        return (128 + 50 * np.sin(0.31 * x + 0.17 * y) + 40 * np.cos(0.23 * y)
+                + 30 * np.sin(0.011 * x + 0.007 * x * y / ny))
+
+    def card(a):
+        a = np.stack(a).astype(np.float32)
+        return torch.from_numpy(a[0] if len(shifts) == 1 else a).cuda()
+
+    I0 = card([scene(yy, xx) for _ in shifts])
+    I1 = card([scene(yy + dy, xx + dx) for dx, dy in shifts])
+    u1 = card([0.5 * dx + 0.2 * rng.standard_normal(shape) for dx, _ in shifts])
+    u2 = card([0.5 * dy + 0.2 * rng.standard_normal(shape) for _, dy in shifts])
+    ps = [card([p_scale * rng.standard_normal(shape) for _ in shifts])
+          for _ in range(4)]
+    I1x, I1y = centered_gradient(I1)
+    I1w, I1wx, I1wy = bicubic_warp(
+        torch.stack([I1, I1x, I1y], -3), u1.unsqueeze(-3), u2.unsqueeze(-3),
+        border_out=True).unbind(-3)
+    grad = I1wx * I1wx + I1wy * I1wy
+    rho_c = I1w - I1wx * u1 - I1wy * u2 - I0
+    return [x.contiguous() for x in (I1wx, I1wy, rho_c, grad, u1, u2, *ps)]
+
+
+def hold_inner_loop(torch, ti, tag, arrays, max_iters, epsilon=0.01):
+    """One launch of ``tvl1_inner_loop`` against its plain version: equal
+    iteration counts a pair, outputs within FLOW_INNER_ATOL, the same bits on
+    a second run. Returns (iterations a pair, max |kernel - plain|, max
+    |plain|)."""
+    kw = dict(tau=0.25, lambda_=0.2, theta=0.3, epsilon=epsilon,
+              max_iters=max_iters, return_iterations=True)
+    got, stats = ti.tvl1_inner_loop(*arrays, **kw)
+    torch.cuda.synchronize()
+    again, stats2 = ti.tvl1_inner_loop(*arrays, **kw)
+    ref, stats_ref = ti.tvl1_inner_loop_plain(*arrays, **kw)
+    n, n_ref = stats[:, 0].tolist(), stats_ref[:, 0].tolist()
+    check(n == n_ref, f"{tag}: iterations kernel {n} plain {n_ref} (errors "
+          f"{stats[:, 1].tolist()} / {stats_ref[:, 1].tolist()})")
+    check(torch.equal(stats, stats2)
+          and all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"{tag}: two runs on the same inputs differ")
+    err = scale = 0.0
+    for name, g, r in zip(("u1", "u2", "p11", "p12", "p21", "p22"), got, ref):
+        check(g.shape == r.shape and g.dtype == r.dtype
+              and bool(torch.isfinite(g).all()),
+              f"{tag} {name}: shape, dtype or non-finite output")
+        e, sc = rel_err(g, r)
+        check(e <= FLOW_INNER_ATOL, f"{tag} {name}: max|kernel-plain| {e}")
+        err, scale = max(err, e), max(scale, sc)
+    return [int(x) for x in n], err, scale
+
+
+def flow_kernel_phase(torch, cuda_time_ms):
+    """The flow's inner loop against its plain version; returns the
+    kernel's rows."""
+    from frame2frame_tpu_torch.flow import tvl1_inner as ti
+
+    rng = np.random.default_rng(6)
+    for shape in ((1, 1), (2, 3)):  # every pixel takes a border rule
+        arrays = [torch.from_numpy(rng.standard_normal(shape)
+                                   .astype(np.float32)).cuda()
+                  for _ in range(10)]
+        arrays[3] = arrays[0] ** 2 + arrays[1] ** 2
+        for mi in (1, 30, 300):
+            hold_inner_loop(torch, ti, f"inner loop {shape} max_iters {mi}",
+                            arrays, mi)
+    seen = {}
+    for shape in ((9, 15), (17, 30), (13, 21), (135, 240), (H, W)):
+        arrays = flow_inner_inputs(torch, shape, [(1.3, -0.7)], seed=shape[0],
+                                   p_scale=0.1)
+        for mi in (1, 30, 300):
+            n, err, _ = hold_inner_loop(
+                torch, ti, f"inner loop {shape} max_iters {mi}", arrays, mi)
+            seen[shape, mi] = (n[0], err)
+    print("inner loop shapes (iterations, max|kernel-plain|): " + ", ".join(
+        f"{sh[0]}x{sh[1]}/{mi}: {n}, {e:.1e}"
+        for (sh, mi), (n, e) in seen.items()), flush=True)
+    check(all(n == mi for (_, mi), (n, _) in seen.items() if mi == 1)
+          and any(1 < n < 300 for (_, mi), (n, _) in seen.items() if mi == 300),
+          "inner loop: no launch stopped on its error before max_iters")
+
+    # a batch of four pairs that stop at different iterations, and each pair
+    # alone: the same bits whatever else is in the batch
+    shifts = [(0.2, 0.1), (2.5, -1.5), (1.0, 0.8), (0.0, 0.0)]
+    batch = flow_inner_inputs(torch, (68, 120), shifts, seed=7)
+    n, err, _ = hold_inner_loop(torch, ti, "inner loop P=4 68x120", batch, 300)
+    check(len(set(n)) > 2, f"inner loop P=4: pairs stopped alike, {n}")
+    kw = dict(tau=0.25, lambda_=0.2, theta=0.3, epsilon=0.01, max_iters=300,
+              return_iterations=True)
+    got, stats = ti.tvl1_inner_loop(*batch, **kw)
+    for q in range(len(shifts)):
+        alone, s = ti.tvl1_inner_loop(*(x[q] for x in batch), **kw)
+        check(torch.equal(s[0], stats[q])
+              and all(torch.equal(a, b[q]) for a, b in zip(alone, got)),
+              f"inner loop P=4: pair {q} differs from its launch alone")
+    print(f"inner loop P=4 68x120: iterations {n}, max|kernel-plain| "
+          f"{err:.1e}, each pair equal to its launch alone", flush=True)
+
+    rows = []
+    for shape in ((135, 240), (H, W)):
+        ny, nx = shape
+        arrays = flow_inner_inputs(torch, shape, [(1.3, -0.7)], seed=ny,
+                                   p_scale=0.1)
+        n, err, scale = hold_inner_loop(torch, ti, f"inner loop {shape}",
+                                        arrays, 300)
+        kw = dict(tau=0.25, lambda_=0.2, theta=0.3, max_iters=300)
+        ms = cuda_time_ms(lambda: ti.tvl1_inner_loop(
+            *arrays, epsilon=0.01, **kw), iters=10)
+        plain_ms = cuda_time_ms(lambda: ti.tvl1_inner_loop_plain(
+            *arrays, epsilon=0.01, **kw), iters=1, warmup=1)
+        # epsilon 0: the error never falls to it, all 300 iterations run
+        _, st = ti.tvl1_inner_loop(*arrays, epsilon=0.0,
+                                   return_iterations=True, **kw)
+        check(int(st[0, 0]) == 300, f"inner loop {shape}: epsilon 0 ran "
+              f"{int(st[0, 0])} iterations")
+        ms300 = cuda_time_ms(lambda: ti.tvl1_inner_loop(
+            *arrays, epsilon=0.0, **kw), iters=10)
+        plain300 = cuda_time_ms(lambda: ti.tvl1_inner_loop_plain(
+            *arrays, epsilon=0.0, **kw), iters=1, warmup=0, repeats=1)
+        blocks = ti.launch_blocks(1, ny, nx)
+        barrier_us = cuda_time_ms(
+            lambda: ti.grid_barrier_probe(blocks, 1000), iters=3)
+        # every input read once, every output written once; the operations
+        # of the iterations that this run's data needed
+        bms, by = bound_ms(16 * ny * nx * 4,
+                           FLOW_OPS_PER_PIXEL * ny * nx * n[0],
+                           F32_FLOP_PER_S)
+        row = {"B": 1, "shape": [ny, nx], "dtype": "float32",
+               "iterations": n[0], "max_abs_err": err, "max_abs_plain": scale,
+               "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+               "bound_ms": bms, "bound_by": by,
+               "us_per_iteration": ms / n[0] * 1e3,
+               "ms_300_iterations": ms300,
+               "us_per_iteration_300": ms300 / 300 * 1e3,
+               "plain_ms_300_iterations": plain300,
+               "blocks": blocks, "barrier_us": barrier_us,
+               "barrier_floor_ms": n[0] * barrier_us / 1e3}
+        rows.append(row)
+        print(f"kernel tvl1_inner_loop {ny}x{nx} float32: {n[0]} iterations, "
+              f"err {err:.3e} (plain max {scale:.3e}) ms {ms:.4f} plain "
+              f"{plain_ms:.4f} library none bound {bms:.5f} ({by}); 300 "
+              f"iterations {ms300:.4f} ms = {ms300 / 0.3:.3f} us each (plain "
+              f"{plain300:.1f} ms); {blocks} blocks, empty grid barrier "
+              f"{barrier_us:.3f} us, {n[0]} barriers "
+              f"{n[0] * barrier_us / 1e3:.4f} ms", flush=True)
+    torch.cuda.empty_cache()
+    return {"tvl1_inner_loop": rows}
+
+
+def flow_path_phase(torch, fs, psnr, variables, model, training):
+    """The flow path; returns (launch counts of the counted run, the main
+    loop fed by ``AsyncFlowSolver``; timings and comparisons)."""
+    from frame2frame_tpu_torch.flow import tvl1_inner as ti
+    from frame2frame_tpu_torch.flow.tvl1 import (
+        DENOISING_PARAMS, make_batched_tvl1, make_tvl1_solver)
+    from frame2frame_tpu_torch.io.flo import read_flo
+    from frame2frame_tpu_torch.train.online import (
+        AsyncFlowSolver, OnlineDenoiser)
+
+    out = {}
+    # (a) the golden pair of the reference binary, on the kernel
+    I0, I1 = (read_png_gray8(GOLDEN / n).astype(np.float32) / np.float32(255)
+              for n in ("i0.png", "i1.png"))
+    ny, nx = I0.shape
+    for golden, params in (("flow_default.flo", dict(lambda_=0.15, fscale=0)),
+                           ("flow_denoise.flo", dict(lambda_=0.2, fscale=2))):
+        ref = read_flo(GOLDEN / golden)
+        flow = make_tvl1_solver(nx, ny, **params)(I0, I1).cpu().numpy()
+        err = np.abs(flow - ref)
+        print(f"flow golden {golden}: mean |d| {err.mean():.3e} max "
+              f"{err.max():.3e} px", flush=True)
+        check(flow.shape == ref.shape and np.isfinite(flow).all(),
+              f"golden {golden}: shape {flow.shape} or non-finite flow")
+        check(err.mean() < GOLDEN_MEAN_TOL and err.max() < GOLDEN_MAX_TOL,
+              f"golden {golden}: mean {err.mean()} max {err.max()}")
+        out[f"golden/{golden}"] = {"mean_abs_err": float(err.mean()),
+                                   "max_abs_err": float(err.max())}
+
+    # (b) a 540p flow with the denoising parameters
+    clean, noisy, flows = moving_frames(3)
+
+    def gray(frames, k):
+        return frames[k][..., 0] * 255.0
+
+    solve = make_tvl1_solver(W, H, **DENOISING_PARAMS)
+    solve_plain = make_tvl1_solver(W, H, plain=True, **DENOISING_PARAMS)
+    plain_calls = []
+    kernel_plain = ti.tvl1_inner_loop_plain
+
+    def counted_plain(*a, **k):
+        plain_calls.append(1)
+        return kernel_plain(*a, **k)
+
+    its = []
+    fs.reset_launch_counts()
+    ti.tvl1_inner_loop_plain = counted_plain
+    flow_noisy = solve(gray(noisy, 1), gray(noisy, 0), iterations=its)
+    torch.cuda.synchronize()
+    ti.tvl1_inner_loop_plain = kernel_plain
+    launched = fs.launch_counts()["tvl1_inner_loop"]
+    check(launched == FLOW_LAUNCHES_540P and not plain_calls,
+          f"a 540p flow launched tvl1_inner_loop {launched} times and its "
+          f"plain version {len(plain_calls)} times, expected "
+          f"{FLOW_LAUNCHES_540P} and 0")
+    its_plain = []
+    flow_plain = solve_plain(gray(noisy, 1), gray(noisy, 0),
+                             iterations=its_plain)
+    check(fs.launch_counts()["tvl1_inner_loop"] == launched,
+          "the plain solver launched the kernel")
+    counts = [int(s[0, 0]) for s in its]
+    for i, (a, b) in enumerate(zip(its, its_plain)):
+        check(torch.equal(a[:, 0], b[:, 0]),
+              f"540p flow: launch {i} ran {a[:, 0].tolist()} iterations on "
+              f"the kernel and {b[:, 0].tolist()} on the plain loop (errors "
+              f"{a[:, 1].tolist()} / {b[:, 1].tolist()})")
+    d_solver = float((flow_noisy - flow_plain).abs().max())
+    print(f"flow 540p: {launched} launches, iterations {counts} "
+          f"(sum {sum(counts)}), max |kernel solver - plain solver| "
+          f"{d_solver:.3e} px", flush=True)
+    check(flow_noisy.shape == (H, W, 2)
+          and bool(torch.isfinite(flow_noisy).all()),
+          "540p flow: shape or non-finite flow")
+    check(d_solver <= FLOW_SOLVER_ATOL,
+          f"540p flow: kernel solver off the plain solver by {d_solver} px")
+
+    def epe(flow, k):
+        d = flow.cpu().numpy() - flows[k]
+        m = FLOW_MARGIN
+        return float(np.median(np.sqrt((d ** 2).sum(-1))[m:-m, m:-m]))
+
+    flow_clean = solve(gray(clean, 1), gray(clean, 0))
+    epe_clean, epe_noisy = epe(flow_clean, 1), epe(flow_noisy, 1)
+    print(f"flow 540p: median end-point error against the analytic flow, "
+          f"clean frames {epe_clean:.4f} px, noisy frames {epe_noisy:.4f} px",
+          flush=True)
+    check(epe_clean <= FLOW_EPE_TOL,
+          f"540p flow of the clean frames misses the analytic flow by "
+          f"{epe_clean} px (median)")
+    src = np.stack([gray(noisy, 1), gray(noisy, 2), gray(clean, 1),
+                    gray(clean, 2)])
+    dst = np.stack([gray(noisy, 0), gray(noisy, 1), gray(clean, 0),
+                    gray(clean, 1)])
+    its4 = []
+    fs.reset_launch_counts()
+    batched = make_batched_tvl1(W, H, **DENOISING_PARAMS)(src, dst,
+                                                          iterations=its4)
+    check(fs.launch_counts()["tvl1_inner_loop"] == FLOW_LAUNCHES_540P,
+          "the batched solver did not take one launch a warp")
+    for q in range(4):
+        check(torch.equal(batched[q], solve(src[q], dst[q])),
+              f"batched 540p solver: pair {q} differs from its single solve")
+    spread = max(int(s[:, 0].max() - s[:, 0].min()) for s in its4)
+    print(f"flow 540p: batched P=4 equals four single solves bit for bit "
+          f"(iteration counts within a launch up to {spread} apart)",
+          flush=True)
+    check(spread > 0, "batched 540p solver: all pairs stopped alike")
+    out["flow_540p"] = {
+        "launches": launched, "iterations": counts,
+        "max_abs_kernel_vs_plain_solver": d_solver,
+        "median_epe_clean": epe_clean, "median_epe_noisy": epe_noisy}
+
+    # (c) the main loop with its own flow: the worker solves on its stream
+    # while the engine fine-tunes; frames handed over as the loop of the
+    # JAX package hands them (cur -> prev, noisy, in [0, 1]). The worker's
+    # first solve records the solver's CUDA graph (one eager solve, then the
+    # recording) while this thread denoises the first frame, which has no
+    # frame before it; every solve is a replay.
+    frames = torch.from_numpy(noisy).cuda()
+    nmid = model.nmid
+    want = {"fwd_layer": nmid, "fwd_layer_train": nmid * ITERS,
+            "fwd_layer_eval": 0, "bwd_layer": nmid * ITERS,
+            **dict.fromkeys(("first_conv", "last_loss_fwd", "last_loss_bwd",
+                             "first_dw"), ITERS)}
+    eng = OnlineDenoiser(model, variables, iters=ITERS, residual_model=True)
+    afs = AsyncFlowSolver(W, H, DENOISING_PARAMS, lookahead=3)
+    fs.reset_launch_counts()
+    afs.prefetch(1, noisy[1], noisy[0])
+    first = eng.denoise_only(frames[0])
+    check(bool(torch.isfinite(first).all()), "flow path: first frame")
+    before = fs.launch_counts()
+    check(before["fwd_layer"] == nmid, "flow path: the first frame's denoise "
+          f"launched fwd_layer {before['fwd_layer']} times")
+    for k in (1, 2):
+        if k < 2:
+            afs.prefetch(k + 1, noisy[k + 1], noisy[k])
+        flow = afs.get(k)
+        if k == 1:
+            check(torch.equal(flow, flow_noisy), "AsyncFlowSolver's flow "
+                  "differs from the same solve on the caller's stream")
+        before = dict(fs.launch_counts())
+        deno, ls = eng.process_frame(frames[k], frames[k - 1], flow)
+        torch.cuda.synchronize()
+        after = fs.launch_counts()
+        for name, n in want.items():
+            check(after[name] - before[name] == n,
+                  f"flow path process_frame {k}: {name} launched "
+                  f"{after[name] - before[name]} times, expected {n}")
+        ls = ls.cpu().numpy()
+        check(flow.shape == (H, W, 2) and deno.shape == (H, W, 1)
+              and ls.shape == (ITERS,), f"flow path frame {k}: shapes")
+        check(np.isfinite(ls).all() and bool(torch.isfinite(deno).all())
+              and bool(torch.isfinite(flow).all()),
+              f"flow path frame {k}: non-finite output")
+        check(ls[-1] < ls[0], f"flow path frame {k}: loss did not fall "
+              f"({ls[0]} -> {ls[-1]})")
+        pk = psnr(clean[k], deno.cpu().numpy())
+        pa = training[f"flat/frame_{k}"]["psnr"]
+        print(f"flow path frame {k}: loss {ls[0]:.2f} -> {ls[-1]:.2f}; psnr "
+              f"with the TV-L1 flow {pk:.4f} dB, with the analytic flow "
+              f"{pa:.4f} dB; flow median end-point error "
+              f"{epe(flow, k):.4f} px", flush=True)
+        check(abs(pk - pa) <= FLOW_PSNR_TOL, f"flow path frame {k}: psnr "
+              f"{pk} dB with the TV-L1 flow, {pa} dB with the analytic one")
+        out[f"frame_{k}"] = {"loss_first": float(ls[0]),
+                             "loss_last": float(ls[-1]), "psnr": pk,
+                             "psnr_analytic_flow": pa,
+                             "median_epe": epe(flow, k)}
+    launches = fs.launch_counts()
+    # the eager solve before the recording, and two replays
+    check(launches["tvl1_inner_loop"] == 3 * FLOW_LAUNCHES_540P,
+          f"flow path: tvl1_inner_loop launched "
+          f"{launches['tvl1_inner_loop']} times for two flows and the solve "
+          "before the recording")
+    out["solve_times_ms"] = [t * 1e3 for t in afs.solve_times]
+    afs.close()
+
+    # the worker's solver on this thread (cached, its graph recorded above):
+    # the eager solve's bits, and its launches counted at the replay
+    solve_graph = make_tvl1_solver(W, H, graph=True, **DENOISING_PARAMS)
+    its_graph = []
+    fs.reset_launch_counts()
+    flow_graph = solve_graph(gray(noisy, 1), gray(noisy, 0),
+                             iterations=its_graph)
+    torch.cuda.synchronize()
+    replayed = fs.launch_counts()["tvl1_inner_loop"]
+    check(replayed == FLOW_LAUNCHES_540P,
+          f"a replayed 540p flow counted {replayed} launches")
+    check(torch.equal(flow_graph, flow_noisy)
+          and len(its_graph) == len(its)
+          and all(torch.equal(a, b) for a, b in zip(its_graph, its)),
+          "540p flow: the replayed graph differs from the eager solve")
+    print("flow 540p: the solve replayed from a CUDA graph equals the eager "
+          "solve bit for bit, iteration counts included", flush=True)
+    # one flow alone, frames uploaded from the host as the worker does:
+    # replayed from the graph, launched one by one, and on the plain loop
+    prof = profile_call(torch, lambda: solve_graph(
+        gray(noisy, 2), gray(noisy, 1)), iters=5, top=8)
+    eager = profile_call(torch, lambda: solve(
+        gray(noisy, 2), gray(noisy, 1)), iters=5, top=8)
+    t0 = time.perf_counter()
+    solve_plain(gray(noisy, 2), gray(noisy, 1))
+    torch.cuda.synchronize()
+    prof["plain_solver_ms"] = (time.perf_counter() - t0) * 1e3
+    out["flow_alone"] = prof
+    out["flow_alone_eager"] = eager
+    print("flow 540p alone, graph replay: " + json.dumps(prof), flush=True)
+    print("flow 540p alone, eager: " + json.dumps(eager), flush=True)
+
+    # a frame of flow + fine-tune with the flow prefetched on its stream,
+    # against the two alone, in turns on the same engine
+    flow2 = solve(gray(noisy, 2), gray(noisy, 1))
+
+    def alone():
+        t0 = time.perf_counter()
+        eng.process_frame(frames[2], frames[1], flow2)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def overlapped(n):
+        afs = AsyncFlowSolver(W, H, DENOISING_PARAMS, lookahead=3)
+        order = [(1, 0), (2, 1)] * n
+        afs.prefetch(0, noisy[1], noisy[0])
+        ts = []
+        for i, (c, p) in enumerate(order[:-1]):
+            t0 = time.perf_counter()
+            afs.prefetch(i + 1, noisy[order[i + 1][0]], noisy[order[i + 1][1]])
+            eng.process_frame(frames[c], frames[p], afs.get(i))
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        afs.get(len(order) - 1)  # nothing left running beside what follows
+        afs.close()
+        # the first flow was not solved ahead of its frame
+        return ts[1:], [t * 1e3 for t in afs.solve_times]
+
+    a1 = [alone() for _ in range(3)]
+    o1, st1 = overlapped(3)
+    o2, st2 = overlapped(3)
+    a2 = [alone() for _ in range(3)]
+    timing = {
+        "finetune_alone_ms": float(np.median(a1 + a2)),
+        "flow_alone_ms": prof["ms"],
+        "flow_alone_eager_ms": eager["ms"],
+        "frame_with_prefetched_flow_ms": float(np.median(o1 + o2)),
+        "frame_with_prefetched_flow_all_ms": o1 + o2,
+        "finetune_alone_all_ms": a1 + a2,
+        "solve_times_beside_finetune_ms": st1 + st2}
+    timing["sum_alone_ms"] = (timing["finetune_alone_ms"]
+                              + timing["flow_alone_ms"])
+    out["flow_and_finetune"] = timing
+    print("flow path timing: " + json.dumps(timing), flush=True)
+    return launches, out
+
+
 def main():
     if not (REPO / "frame2frame_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke: the port's package frame2frame_tpu_torch is not "
@@ -1049,10 +1547,13 @@ def main():
         rows = kernel_phase(torch, F, fs, cuda_time_ms)
         rows.update(train_kernel_phase(torch, F, fs, cuda_time_ms))
         rows.update(ends_kernel_phase(torch, F, fe, cuda_time_ms))
+        rows.update(flow_kernel_phase(torch, cuda_time_ms))
         serve_launches, timings, variables, model = serving_phase(
             torch, fs, psnr)
         train_launches, flat_launches, training = training_phase(
             torch, fs, psnr, variables, model)
+        flow_launches, flow = flow_path_phase(
+            torch, fs, psnr, variables, model, training)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -1060,15 +1561,16 @@ def main():
     # each path ran with the counts set to 0 just before it and read just
     # after; a kernel must have been launched on every path it belongs to
     # (training: the per-iteration route; flat: the flat route, which the
-    # engine takes by itself)
-    paths = {"fwd_layer": ("serving", "training", "flat"),
+    # engine takes by itself; flow: the flat route fed by AsyncFlowSolver)
+    paths = {"fwd_layer": ("serving", "training", "flat", "flow"),
              "fwd_layer_eval": ("serving",),
-             "fwd_layer_train": ("training", "flat"),
-             "bwd_layer": ("training", "flat"),
-             "first_conv": ("flat",), "last_loss_fwd": ("flat",),
-             "last_loss_bwd": ("flat",), "first_dw": ("flat",)}
+             "fwd_layer_train": ("training", "flat", "flow"),
+             "bwd_layer": ("training", "flat", "flow"),
+             "first_conv": ("flat", "flow"), "last_loss_fwd": ("flat", "flow"),
+             "last_loss_bwd": ("flat", "flow"), "first_dw": ("flat", "flow"),
+             "tvl1_inner_loop": ("flow",)}
     by_path = {"serving": serve_launches, "training": train_launches,
-               "flat": flat_launches}
+               "flat": flat_launches, "flow": flow_launches}
     for name, on in paths.items():
         for path in on:
             if by_path[path][name] <= 0:
@@ -1077,7 +1579,9 @@ def main():
                 return 1
     kernels = []
     for name, cfgs in rows.items():
-        main_row = cfgs[0]  # B=1 bf16: the shape the main paths give it
+        # B=1 bf16, and 135x240 for the flow's inner loop (the finest scale
+        # a 540p flow solves): the shape the main paths give it
+        main_row = cfgs[0]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
@@ -1089,7 +1593,7 @@ def main():
             "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"], "configs": cfgs})
     print(json.dumps({"kernels": kernels, "serving": timings,
-                      "training": training}))
+                      "training": training, "flow": flow}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
-"""What the kernel modules (``fused_stack``, ``fused_ends``) share: the plain
-convolution and operand rounding of the plain versions, and the checks
-around a launch."""
+"""What the kernel modules (``fused_stack``, ``fused_ends``,
+``flow/tvl1_inner``) share: the plain convolution and operand rounding of the
+plain versions, and the checks around a launch."""
 
 from __future__ import annotations
 

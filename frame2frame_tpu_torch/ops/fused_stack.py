@@ -25,7 +25,8 @@ Counterparts of ``frame2frame_tpu/ops/fused_stack.py``:
   of ``ops/fused_ends.py``.
 
 ``KERNELS`` is the launch registry of all of the port's kernels, the end
-kernels included (``launch_counts``, ``reset_launch_counts``).
+kernels and the flow's inner loop (``flow/tvl1_inner.py``) included
+(``launch_counts``, ``reset_launch_counts``).
 
 Activations are NHWC ``(B, H, W, 64)``, contiguous, bf16 or f32. The TPU
 pair-packed flat layout is not carried over: a batch is the batch
@@ -67,6 +68,7 @@ from ._common import (
     _raise_on,
     _round_operand,
 )
+from ..flow.tvl1_inner import tvl1_inner_loop
 from .fused_ends import first_conv, first_dw, last_loss_bwd, last_loss_fwd
 
 EPS = 1e-5
@@ -313,7 +315,8 @@ def bwd_layer(g, z_i, z_prev, w, vecs, first_layer=False):
 
 
 KERNELS = (fwd_layer, fwd_layer_train, fwd_layer_eval, bwd_layer,
-           first_conv, last_loss_fwd, last_loss_bwd, first_dw)
+           first_conv, last_loss_fwd, last_loss_bwd, first_dw,
+           tvl1_inner_loop)
 
 
 def reset_launch_counts():

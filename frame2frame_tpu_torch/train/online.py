@@ -12,15 +12,19 @@ reference hot loop (blind_denoising.py:187-256) per
 frame: warp the previous noisy frame by the flow and mask occlusions, once;
 ``iters`` Adam updates of the DnCNN in training mode on the summed masked L1
 loss; then the eval-mode denoise with the updated weights. PyTorch runs
-eagerly, so the JAX package's ``lax.scan`` is a Python loop here. TV-L1 flow,
-``AsyncFlowSolver`` and ``run_blind_denoising`` are not ported yet: the
-caller hands ``process_frame`` a flow.
+eagerly, so the JAX package's ``lax.scan`` is a Python loop here. The flow
+comes from ``AsyncFlowSolver`` (TV-L1, ``flow/tvl1.py``), which solves ahead
+of the fine-tune on a CUDA stream of its own. ``run_blind_denoising`` is not
+ported yet: the caller feeds ``AsyncFlowSolver`` and hands ``process_frame``
+its flows.
 """
 
 from __future__ import annotations
 
 import copy
 import os
+import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -172,6 +176,78 @@ def make_online_step(model, tx, iters=20, residual_model=False,
         return opt_state, deno, torch.stack(losses)
 
     return step
+
+
+class AsyncFlowSolver:
+    """TV-L1 flows solved ahead of the fine-tune by a worker thread.
+
+    Counterpart of the JAX package's ``AsyncFlowSolver``, with the same
+    interface. That class solves on the host CPU because its accelerator runs
+    one program at a time; a CUDA card runs several streams, so the worker
+    solves ON THE CARD, on a stream of its own, beside the fine-tune's
+    kernels. A solve is one replay of a CUDA graph (``make_tvl1_solver(...,
+    graph=True)``; the first solve records it), so the worker leaves the
+    host, which the fine-tune's launches keep busy, alone. ``get(i)`` makes
+    the caller's current stream wait on the event recorded after solve ``i``
+    and hands over the ``(H, W, 2)`` tensor; the host does not wait for the
+    card there.
+
+    ``params``: keywords of ``make_tvl1_solver`` (``DENOISING_PARAMS``);
+    ``lookahead``: how many flows a caller should keep in flight (read by the
+    caller, as in the JAX package); ``device``: None means the CUDA card and
+    raises where there is none, ``"cpu"`` solves on the host with the plain
+    version of the inner loop. ``solve_times`` holds what each solve took in
+    seconds by the worker's clock, from the frames' upload to the end of the
+    solve on the worker's stream."""
+
+    def __init__(self, W, H, params, lookahead=3, device=None):
+        from ..flow.tvl1 import make_tvl1_solver
+
+        self.device = resolve_device(device)
+        self._solve = make_tvl1_solver(W, H, device=self.device, graph=True,
+                                       **params)
+        self._cuda = self.device.type == "cuda"
+        self._stream = torch.cuda.Stream(self.device) if self._cuda else None
+        self._pool = ThreadPoolExecutor(max_workers=1)
+        self._futs = {}
+        self.lookahead = lookahead
+        self.solve_times = []
+
+    def _work(self, cur_np, prev_np):
+        t0 = time.perf_counter()
+        cur = np.asarray(cur_np)[..., 0] * 255.0
+        prev = np.asarray(prev_np)[..., 0] * 255.0
+        if not self._cuda:
+            flow = self._solve(cur, prev)
+            self.solve_times.append(time.perf_counter() - t0)
+            return flow, None
+        # the current device and the current stream are per thread
+        with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
+            flow = self._solve(cur, prev)
+            done = torch.cuda.Event()
+            done.record(self._stream)
+            self._stream.synchronize()
+        self.solve_times.append(time.perf_counter() - t0)
+        return flow, done
+
+    def prefetch(self, i, cur_np, prev_np):
+        """Schedule flow i (cur -> prev coords) if not already in flight.
+        cur_np, prev_np: (H, W, C) frames in [0, 1]; channel 0 is solved."""
+        if i not in self._futs:
+            self._futs[i] = self._pool.submit(self._work, cur_np, prev_np)
+
+    def get(self, i):
+        """Flow i as an (H, W, 2) tensor on the solver's device, ordered
+        after its solve on the caller's current stream."""
+        flow, done = self._futs.pop(i).result()
+        if done is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(done)
+            flow.record_stream(stream)
+        return flow
+
+    def close(self):
+        self._pool.shutdown(wait=False)
 
 
 def _memory_budget(device):

@@ -281,7 +281,7 @@ def test_kernels_table_and_counters():
     names = [k.__name__ for k in tfs.KERNELS]
     assert names == ["fwd_layer", "fwd_layer_train", "fwd_layer_eval",
                      "bwd_layer", "first_conv", "last_loss_fwd",
-                     "last_loss_bwd", "first_dw"]
+                     "last_loss_bwd", "first_dw", "tvl1_inner_loop"]
     tfs.bwd_layer.launches = 3
     assert tfs.launch_counts()["bwd_layer"] == 3
     tfs.reset_launch_counts()

@@ -42,17 +42,20 @@ print(len(names))
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 16
+    assert int(res.stdout.split()[-1]) >= 30
 
 
 def test_port_sources_name_no_jax():
     pat = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|frame2frame_tpu)\b",
                      re.MULTILINE)
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) >= 17
-    assert PKG / "ops" / "warp.py" in files
-    assert PKG / "ops" / "fused_ends.py" in files
-    assert PKG / "train" / "flat_step.py" in files
+    assert len(files) >= 32
+    for rel in ("ops/warp.py", "ops/fused_ends.py", "train/flat_step.py",
+                "ops/grad.py", "ops/gaussian.py", "ops/interp.py",
+                "ops/pyramid.py", "flow/tvl1_inner.py", "flow/tvl1.py",
+                "flow/api.py", "io/flo.py", "io/image.py", "config.py",
+                "cli/tvl1flow.py"):
+        assert PKG / rel in files, rel
     for f in files:
         assert not pat.search(f.read_text()), f
 
@@ -64,9 +67,12 @@ def test_cuda_sources_stand_alone():
     sources = sorted((PKG / "csrc").glob("*.cu*"))
     assert [f.name for f in sources] == ["conv3x3_c64.cuh", "fused_ends.cu",
                                          "fused_stack.cu",
-                                         "fused_stack_bwd.cu"]
+                                         "fused_stack_bwd.cu",
+                                         "tvl1_inner.cu"]
+    # cooperative_groups.h: the toolkit's header for the barrier across all
+    # blocks that the flow's inner loop takes once an iteration
     allowed = {"cuda_bf16.h", "cuda_runtime.h", "stdint.h", "atomic",
-               "type_traits", "conv3x3_c64.cuh"}
+               "type_traits", "conv3x3_c64.cuh", "cooperative_groups.h"}
     for f in sources:
         text = f.read_text()
         included = set(re.findall(r'#include\s+[<"]([^>"]+)[>"]', text))
@@ -85,13 +91,14 @@ def test_kernel_wrappers_never_fall_back():
 
     trees = {}
     for rel in ("ops/fused_stack.py", "ops/fused_ends.py", "ops/_common.py",
-                "train/flat_step.py"):
+                "train/flat_step.py", "flow/tvl1_inner.py", "flow/tvl1.py"):
         trees[rel] = ast.parse((PKG / rel).read_text())
         assert not [n for n in ast.walk(trees[rel])
                     if isinstance(n, ast.Try)], rel
     names = [k.__name__ for k in fs.KERNELS]
-    assert len(names) == len(set(names)) == 8
-    funcs = {n.name: n for rel in ("ops/fused_stack.py", "ops/fused_ends.py")
+    assert len(names) == len(set(names)) == 9
+    funcs = {n.name: n for rel in ("ops/fused_stack.py", "ops/fused_ends.py",
+                                   "flow/tvl1_inner.py")
              for n in trees[rel].body if isinstance(n, ast.FunctionDef)}
     for k in fs.KERNELS:
         name = k.__name__
@@ -107,13 +114,16 @@ def test_kernel_wrappers_never_fall_back():
 
 
 def test_end_kernels_count_launches_without_the_registry():
-    """``ops/fused_ends.py`` imported alone, before ``ops/fused_stack.py``
-    and its registry, has its counters."""
+    """``ops/fused_ends.py`` and ``flow/tvl1_inner.py`` imported alone,
+    before ``ops/fused_stack.py`` and its registry, have their counters; the
+    flow solver does not pull in the network's kernels."""
     code = """
 import sys
 from frame2frame_tpu_torch.ops import fused_ends as fe
+from frame2frame_tpu_torch.flow import tvl1_inner, tvl1, api
 assert "frame2frame_tpu_torch.ops.fused_stack" not in sys.modules
-for k in (fe.first_conv, fe.last_loss_fwd, fe.last_loss_bwd, fe.first_dw):
+for k in (fe.first_conv, fe.last_loss_fwd, fe.last_loss_bwd, fe.first_dw,
+          tvl1_inner.tvl1_inner_loop):
     assert k.launches == 0, k
 """
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -125,7 +135,8 @@ def test_flat_step_reads_no_environment():
     """The port picks no implementation from the environment: neither the
     flat step nor the engine that chooses it names ``os.environ`` or the JAX
     package's ``F2F_FLATSTEP`` switch in its code."""
-    for rel in ("train/flat_step.py", "ops/fused_ends.py"):
+    for rel in ("train/flat_step.py", "ops/fused_ends.py",
+                "flow/tvl1_inner.py", "flow/tvl1.py", "flow/api.py"):
         tree = ast.parse((PKG / rel).read_text())
         names = {n.id for n in ast.walk(tree) if isinstance(n, ast.Name)}
         assert "os" not in names, rel
@@ -161,6 +172,43 @@ def test_wrappers_refuse_a_device_without_a_kernel():
         with pytest.raises(ValueError, match="no kernel for meta"):
             call()
     assert not any(fs.launch_counts().values())
+
+
+def test_flow_entry_points_need_a_card_or_the_cpu_by_name():
+    """``make_tvl1_solver``, ``AsyncFlowSolver`` and ``run_flows`` run on the
+    card unless the caller names the CPU: without a card and without
+    ``device="cpu"`` they raise."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    from frame2frame_tpu_torch.flow.api import run_flows
+    from frame2frame_tpu_torch.flow.tvl1 import (DENOISING_PARAMS,
+                                                 make_batched_tvl1,
+                                                 make_tvl1_solver, tvl1_flow)
+    from frame2frame_tpu_torch.train.online import AsyncFlowSolver
+
+    img = np.zeros((24, 30), np.float32)
+    for call in (lambda: make_tvl1_solver(30, 24),
+                 lambda: make_batched_tvl1(30, 24),
+                 lambda: tvl1_flow(img, img),
+                 lambda: AsyncFlowSolver(30, 24, DENOISING_PARAMS),
+                 lambda: run_flows(np.zeros((2, 24, 30), np.float32))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert callable(make_tvl1_solver(30, 24, device="cpu"))
+    AsyncFlowSolver(30, 24, DENOISING_PARAMS, device="cpu").close()
+
+
+def test_flow_solver_has_no_implementation_switch():
+    """The tensor's device picks kernel or plain version: the JAX package's
+    ``inner_impl=`` and ``vmem_fits`` are not carried over."""
+    import inspect
+
+    from frame2frame_tpu_torch.flow import tvl1, tvl1_inner
+
+    assert "inner_impl" not in inspect.signature(tvl1.make_tvl1_solver).parameters
+    assert not hasattr(tvl1_inner, "vmem_fits")
+    with pytest.raises(TypeError):
+        tvl1.make_tvl1_solver(30, 24, device="cpu", inner_impl="pallas")
 
 
 @pytest.mark.parametrize("why", ["channels", "features", "convention"])
