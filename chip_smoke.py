@@ -44,10 +44,12 @@ Phases, any failure exits non-zero:
    parameters on the kernel against the same solver on the plain loop, its
    end-point error against the sequence's analytic flow, the batched solver
    against single solves; then ``AsyncFlowSolver`` feeding
-   ``process_frame`` its flows for two frames (its worker records the
-   solver's CUDA graph while the first frame is denoised, and replays it), the
-   replayed solve against the eager one, and the time of a flow alone and of
-   a frame with its flow prefetched on a second stream;
+   ``process_frame`` its flows for two frames (its worker records a solve
+   into a CUDA graph while the first frame is denoised, and replays it; the
+   inner kernels that ran on the card are counted from the profiler's
+   record, since a replay goes through no wrapper), the replayed solve
+   against the eager one, and the time of a flow alone and of a frame with
+   its flow prefetched on a second stream;
 8. a JSON line of per-kernel numbers, then the card line, then the result
    line ``{"ok": true, "device": {...}}``.
 
@@ -133,6 +135,7 @@ FLOW_EPE_TOL, FLOW_MARGIN = 0.35, 10
 # frames fine-tuned on the analytic flow
 FLOW_PSNR_TOL = 0.5  # dB
 FLOW_LAUNCHES_540P = 25  # 5 solved scales x 5 warps
+INNER_KERNEL = "tvl1_inner_k"  # the inner loop's kernel in a profiler record
 # f32 operations a pixel and iteration of the inner loop (thresholding 13,
 # primal and error 15, dual 26)
 FLOW_OPS_PER_PIXEL = 54
@@ -659,12 +662,30 @@ def synthetic_frames(n, seed=0):
     return clean, noisy.astype(np.float32)
 
 
-def profile_call(torch, fn, iters=10, top=6):
+def device_kernels(torch, prof):
+    """``{name: [calls, ms]}`` of what a torch.profiler record shows to have
+    run on the device, a graph's replayed kernels included."""
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            k = kernels.setdefault(e.name[:70], [0, 0.0])
+            k[0] += 1
+            k[1] += e.time_range.elapsed_us() / 1e3
+    return kernels
+
+
+def calls_of(kernels, name):
+    """Calls of the device kernels whose name holds ``name``."""
+    return sum(c for n, (c, _) in kernels.items() if name in n)
+
+
+def profile_call(torch, fn, iters=10, top=6, count=None):
     """Host-clock milliseconds per call of ``fn`` (median of ``iters``, each
     ending in a synchronize), then one torch.profiler pass over ``iters``
     calls: device kernel time per call, the device's busy share of the
     profiled wall time, the number of device kernels and of the library's
-    weight-gradient kernels among them per call, and the kernels by device
+    weight-gradient kernels among them per call (and, under ``counted``, of
+    the kernels whose name holds ``count``), and the kernels by device
     time."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -683,12 +704,7 @@ def profile_call(torch, fn, iters=10, top=6):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            k = kernels.setdefault(e.name[:70], [0, 0.0])
-            k[0] += 1
-            k[1] += e.time_range.elapsed_us() / 1e3
+    kernels = device_kernels(torch, prof)
     device_ms = sum(v[1] for v in kernels.values())
     wgrad = sum(c for n, (c, _) in kernels.items() if "wgrad" in n.lower())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:top]
@@ -697,6 +713,7 @@ def profile_call(torch, fn, iters=10, top=6):
             "busy_share": device_ms / wall_ms if kernels else None,
             "device_kernels": sum(c for c, _ in kernels.values()) // iters,
             "library_wgrad_kernels": wgrad // iters,
+            "counted": calls_of(kernels, count) / iters if count else None,
             "top_kernels": [{"name": n, "calls": c // iters,
                              "ms": t / iters} for n, (c, t) in top]}
 
@@ -1256,7 +1273,8 @@ def flow_kernel_phase(torch, cuda_time_ms):
 def flow_path_phase(torch, fs, psnr, variables, model, training):
     """The flow path; returns (launch counts of the counted run, the main
     loop fed by ``AsyncFlowSolver``; timings and comparisons)."""
-    from frame2frame_tpu_torch.flow import tvl1_inner as ti
+    from torch.profiler import ProfilerActivity, profile
+
     from frame2frame_tpu_torch.flow.tvl1 import (
         DENOISING_PARAMS, make_batched_tvl1, make_tvl1_solver)
     from frame2frame_tpu_torch.io.flo import read_flo
@@ -1290,24 +1308,16 @@ def flow_path_phase(torch, fs, psnr, variables, model, training):
 
     solve = make_tvl1_solver(W, H, **DENOISING_PARAMS)
     solve_plain = make_tvl1_solver(W, H, plain=True, **DENOISING_PARAMS)
-    plain_calls = []
-    kernel_plain = ti.tvl1_inner_loop_plain
-
-    def counted_plain(*a, **k):
-        plain_calls.append(1)
-        return kernel_plain(*a, **k)
-
     its = []
     fs.reset_launch_counts()
-    ti.tvl1_inner_loop_plain = counted_plain
     flow_noisy = solve(gray(noisy, 1), gray(noisy, 0), iterations=its)
     torch.cuda.synchronize()
-    ti.tvl1_inner_loop_plain = kernel_plain
+    # five warps of five scales: a kernel launch for every inner loop the
+    # solve runs, so none of them took the plain version
     launched = fs.launch_counts()["tvl1_inner_loop"]
-    check(launched == FLOW_LAUNCHES_540P and not plain_calls,
-          f"a 540p flow launched tvl1_inner_loop {launched} times and its "
-          f"plain version {len(plain_calls)} times, expected "
-          f"{FLOW_LAUNCHES_540P} and 0")
+    check(launched == len(its) == FLOW_LAUNCHES_540P,
+          f"a 540p flow of {len(its)} inner loops launched tvl1_inner_loop "
+          f"{launched} times, expected {FLOW_LAUNCHES_540P} of each")
     its_plain = []
     flow_plain = solve_plain(gray(noisy, 1), gray(noisy, 0),
                              iterations=its_plain)
@@ -1368,9 +1378,12 @@ def flow_path_phase(torch, fs, psnr, variables, model, training):
     # (c) the main loop with its own flow: the worker solves on its stream
     # while the engine fine-tunes; frames handed over as the loop of the
     # JAX package hands them (cur -> prev, noisy, in [0, 1]). The worker's
-    # first solve records the solver's CUDA graph (one eager solve, then the
-    # recording) while this thread denoises the first frame, which has no
-    # frame before it; every solve is a replay.
+    # first solve makes its launches one by one, through the wrapper, and
+    # then records the solve into a CUDA graph, while this thread denoises
+    # the first frame, which has no frame before it; every flow handed over
+    # is a replay. A replay goes through no wrapper and adds nothing to the
+    # launch count, so the profiler's record of this run says how many inner
+    # kernels ran on the card.
     frames = torch.from_numpy(noisy).cuda()
     nmid = model.nmid
     want = {"fwd_layer": nmid, "fwd_layer_train": nmid * ITERS,
@@ -1380,79 +1393,99 @@ def flow_path_phase(torch, fs, psnr, variables, model, training):
     eng = OnlineDenoiser(model, variables, iters=ITERS, residual_model=True)
     afs = AsyncFlowSolver(W, H, DENOISING_PARAMS, lookahead=3)
     fs.reset_launch_counts()
-    afs.prefetch(1, noisy[1], noisy[0])
-    first = eng.denoise_only(frames[0])
-    check(bool(torch.isfinite(first).all()), "flow path: first frame")
-    before = fs.launch_counts()
-    check(before["fwd_layer"] == nmid, "flow path: the first frame's denoise "
-          f"launched fwd_layer {before['fwd_layer']} times")
-    for k in (1, 2):
-        if k < 2:
-            afs.prefetch(k + 1, noisy[k + 1], noisy[k])
-        flow = afs.get(k)
-        if k == 1:
-            check(torch.equal(flow, flow_noisy), "AsyncFlowSolver's flow "
-                  "differs from the same solve on the caller's stream")
-        before = dict(fs.launch_counts())
-        deno, ls = eng.process_frame(frames[k], frames[k - 1], flow)
-        torch.cuda.synchronize()
-        after = fs.launch_counts()
-        for name, n in want.items():
-            check(after[name] - before[name] == n,
-                  f"flow path process_frame {k}: {name} launched "
-                  f"{after[name] - before[name]} times, expected {n}")
-        ls = ls.cpu().numpy()
-        check(flow.shape == (H, W, 2) and deno.shape == (H, W, 1)
-              and ls.shape == (ITERS,), f"flow path frame {k}: shapes")
-        check(np.isfinite(ls).all() and bool(torch.isfinite(deno).all())
-              and bool(torch.isfinite(flow).all()),
-              f"flow path frame {k}: non-finite output")
-        check(ls[-1] < ls[0], f"flow path frame {k}: loss did not fall "
-              f"({ls[0]} -> {ls[-1]})")
-        pk = psnr(clean[k], deno.cpu().numpy())
-        pa = training[f"flat/frame_{k}"]["psnr"]
-        print(f"flow path frame {k}: loss {ls[0]:.2f} -> {ls[-1]:.2f}; psnr "
-              f"with the TV-L1 flow {pk:.4f} dB, with the analytic flow "
-              f"{pa:.4f} dB; flow median end-point error "
-              f"{epe(flow, k):.4f} px", flush=True)
-        check(abs(pk - pa) <= FLOW_PSNR_TOL, f"flow path frame {k}: psnr "
-              f"{pk} dB with the TV-L1 flow, {pa} dB with the analytic one")
-        out[f"frame_{k}"] = {"loss_first": float(ls[0]),
-                             "loss_last": float(ls[-1]), "psnr": pk,
-                             "psnr_analytic_flow": pa,
-                             "median_epe": epe(flow, k)}
+    handed = []
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as path_prof:
+        afs.prefetch(1, noisy[1], noisy[0])
+        first = eng.denoise_only(frames[0])
+        check(bool(torch.isfinite(first).all()), "flow path: first frame")
+        before = fs.launch_counts()
+        check(before["fwd_layer"] == nmid, "flow path: the first frame's "
+              f"denoise launched fwd_layer {before['fwd_layer']} times")
+        for k in (1, 2):
+            if k < 2:
+                afs.prefetch(k + 1, noisy[k + 1], noisy[k])
+            flow = afs.get(k)
+            handed.append(flow)
+            before = dict(fs.launch_counts())
+            deno, ls = eng.process_frame(frames[k], frames[k - 1], flow)
+            torch.cuda.synchronize()
+            after = fs.launch_counts()
+            for name, n in want.items():
+                check(after[name] - before[name] == n,
+                      f"flow path process_frame {k}: {name} launched "
+                      f"{after[name] - before[name]} times, expected {n}")
+            ls = ls.cpu().numpy()
+            check(flow.shape == (H, W, 2) and deno.shape == (H, W, 1)
+                  and ls.shape == (ITERS,), f"flow path frame {k}: shapes")
+            check(np.isfinite(ls).all() and bool(torch.isfinite(deno).all())
+                  and bool(torch.isfinite(flow).all()),
+                  f"flow path frame {k}: non-finite output")
+            check(ls[-1] < ls[0], f"flow path frame {k}: loss did not fall "
+                  f"({ls[0]} -> {ls[-1]})")
+            pk = psnr(clean[k], deno.cpu().numpy())
+            pa = training[f"flat/frame_{k}"]["psnr"]
+            print(f"flow path frame {k}: loss {ls[0]:.2f} -> {ls[-1]:.2f}; "
+                  f"psnr with the TV-L1 flow {pk:.4f} dB, with the analytic "
+                  f"flow {pa:.4f} dB; flow median end-point error "
+                  f"{epe(flow, k):.4f} px", flush=True)
+            check(abs(pk - pa) <= FLOW_PSNR_TOL,
+                  f"flow path frame {k}: psnr {pk} dB with the TV-L1 flow, "
+                  f"{pa} dB with the analytic one")
+            out[f"frame_{k}"] = {"loss_first": float(ls[0]),
+                                 "loss_last": float(ls[-1]), "psnr": pk,
+                                 "psnr_analytic_flow": pa,
+                                 "median_epe": epe(flow, k)}
     launches = fs.launch_counts()
-    # the eager solve before the recording, and two replays
-    check(launches["tvl1_inner_loop"] == 3 * FLOW_LAUNCHES_540P,
-          f"flow path: tvl1_inner_loop launched "
-          f"{launches['tvl1_inner_loop']} times for two flows and the solve "
-          "before the recording")
+    ran = calls_of(device_kernels(torch, path_prof), INNER_KERNEL)
+    print(f"flow path: tvl1_inner_loop's wrapper launched "
+          f"{launches['tvl1_inner_loop']} times (the solve before the "
+          f"recording); {ran} inner kernels ran on the card (that solve and "
+          f"two replays)", flush=True)
+    check(launches["tvl1_inner_loop"] == FLOW_LAUNCHES_540P,
+          f"flow path: tvl1_inner_loop's wrapper launched "
+          f"{launches['tvl1_inner_loop']} times for the solve before the "
+          f"recording, expected {FLOW_LAUNCHES_540P}")
+    check(ran == 3 * FLOW_LAUNCHES_540P,
+          f"flow path: {ran} inner kernels ran on the card for the solve "
+          f"before the recording and two replays, expected "
+          f"{3 * FLOW_LAUNCHES_540P}")
+    out["inner_kernels_run"] = ran
     out["solve_times_ms"] = [t * 1e3 for t in afs.solve_times]
     afs.close()
+    # replays on the worker's stream against the same solves made launch by
+    # launch on this thread's
+    flow2 = solve(gray(noisy, 2), gray(noisy, 1))
+    for k, eager in ((1, flow_noisy), (2, flow2)):
+        check(torch.equal(handed[k - 1], eager), f"AsyncFlowSolver's flow "
+              f"{k} differs from the same solve on the caller's stream")
+    print("flow 540p: the solves replayed from a CUDA graph equal the eager "
+          "solves bit for bit", flush=True)
 
-    # the worker's solver on this thread (cached, its graph recorded above):
-    # the eager solve's bits, and its launches counted at the replay
-    solve_graph = make_tvl1_solver(W, H, graph=True, **DENOISING_PARAMS)
-    its_graph = []
-    fs.reset_launch_counts()
-    flow_graph = solve_graph(gray(noisy, 1), gray(noisy, 0),
-                             iterations=its_graph)
-    torch.cuda.synchronize()
-    replayed = fs.launch_counts()["tvl1_inner_loop"]
-    check(replayed == FLOW_LAUNCHES_540P,
-          f"a replayed 540p flow counted {replayed} launches")
-    check(torch.equal(flow_graph, flow_noisy)
-          and len(its_graph) == len(its)
-          and all(torch.equal(a, b) for a, b in zip(its_graph, its)),
-          "540p flow: the replayed graph differs from the eager solve")
-    print("flow 540p: the solve replayed from a CUDA graph equals the eager "
-          "solve bit for bit, iteration counts included", flush=True)
     # one flow alone, frames uploaded from the host as the worker does:
-    # replayed from the graph, launched one by one, and on the plain loop
-    prof = profile_call(torch, lambda: solve_graph(
-        gray(noisy, 2), gray(noisy, 1)), iters=5, top=8)
+    # replayed from the worker's graph (handed to its thread and back),
+    # launched one by one, and on the plain loop
+    afs = AsyncFlowSolver(W, H, DENOISING_PARAMS)
+    asked = iter(range(1000))
+
+    def replayed():
+        i = next(asked)
+        afs.prefetch(i, noisy[2], noisy[1])
+        return afs.get(i)
+
+    fs.reset_launch_counts()
+    prof = profile_call(torch, replayed, iters=5, top=8, count=INNER_KERNEL)
+    afs.close()
     eager = profile_call(torch, lambda: solve(
-        gray(noisy, 2), gray(noisy, 1)), iters=5, top=8)
+        gray(noisy, 2), gray(noisy, 1)), iters=5, top=8, count=INNER_KERNEL)
+    # the first call above recorded the graph; the replays launched nothing
+    # through the wrapper, and ran what the eager solve runs
+    check(fs.launch_counts()["tvl1_inner_loop"] == 12 * FLOW_LAUNCHES_540P,
+          "a replayed 540p flow went through tvl1_inner_loop's wrapper")
+    check(prof["counted"] == eager["counted"] == FLOW_LAUNCHES_540P,
+          f"a 540p flow ran {prof['counted']} inner kernels replayed and "
+          f"{eager['counted']} launched one by one, expected "
+          f"{FLOW_LAUNCHES_540P}")
     t0 = time.perf_counter()
     solve_plain(gray(noisy, 2), gray(noisy, 1))
     torch.cuda.synchronize()
@@ -1464,7 +1497,6 @@ def flow_path_phase(torch, fs, psnr, variables, model, training):
 
     # a frame of flow + fine-tune with the flow prefetched on its stream,
     # against the two alone, in turns on the same engine
-    flow2 = solve(gray(noisy, 2), gray(noisy, 1))
 
     def alone():
         t0 = time.perf_counter()

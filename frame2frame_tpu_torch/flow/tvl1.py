@@ -12,13 +12,7 @@ reference's CPU solver (tvl1flow/tvl1flow_lib.c):
   gradients and divergence the exact border-corrected operators
   (``ops/grad.py``); the warps stay plain torch ops;
 - a batch of pairs is a leading axis, not a ``vmap``: every op takes
-  ``(P, H, W)``, and the inner loop keeps per-pair convergence;
-- ``graph=True`` is the counterpart of the JAX package's ``jax.jit``: the
-  first call for an input shape records the whole solve, inner-loop launches
-  included, into one CUDA graph, and later calls replay it. A solve is
-  several thousand small launches that the host makes one by one; a replay
-  is one call that leaves the host free (``AsyncFlowSolver`` solves this way
-  beside the fine-tune). The result is the eager solve's, bit for bit.
+  ``(P, H, W)``, and the inner loop keeps per-pair convergence.
 
 Defaults mirror tvl1flow/main.c:25-35; the denoising pipeline overrides
 lambda=0.2, fscale=2 (tvl1flow/tvl1flow.sh:10-18).
@@ -26,7 +20,6 @@ lambda=0.2, fscale=2 (tvl1flow/tvl1flow.sh:10-18).
 
 from __future__ import annotations
 
-import threading
 from functools import lru_cache
 
 import torch
@@ -85,62 +78,9 @@ def _tvl1_scale(I0, I1, u1, u2, tau, lambda_, theta, warps, epsilon,
     return u1, u2
 
 
-class _GraphedSolver:
-    """``solve`` replayed from one CUDA graph per input shape.
-
-    The first call for a shape runs the solve once eagerly (kernels build and
-    load, nothing of that may happen while a stream records), records it, and
-    replays the record; later calls copy the frames into the graph's input
-    buffers and replay. Inputs, outputs and every intermediate live in the
-    graph's own memory, so calls are serialised by a lock and ordered on the
-    device by an event; what is returned is a copy.
-
-    A launch of ``tvl1_inner_loop`` that is recorded runs when the graph is
-    replayed, not when its wrapper is called: the wrapper's count is taken
-    back after recording and added at every replay."""
-
-    def __init__(self, solve, device, dtype):
-        self._solve, self._device, self._dtype = solve, device, dtype
-        self._lock = threading.Lock()
-        self._graphs = {}
-
-    def _record(self, shape):
-        I0 = torch.zeros(shape, dtype=self._dtype, device=self._device)
-        I1 = torch.zeros_like(I0)
-        self._solve(I0, I1)
-        torch.cuda.current_stream().synchronize()
-        graph, stats = torch.cuda.CUDAGraph(), []
-        before = tvl1_inner_loop.launches
-        # thread_local: another thread may allocate while this one records
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            out = self._solve(I0, I1, iterations=stats)
-        launches = tvl1_inner_loop.launches - before
-        tvl1_inner_loop.launches -= launches
-        return graph, I0, I1, out, stats, launches, torch.cuda.Event()
-
-    def __call__(self, I0, I1, iterations=None):
-        I0, I1 = torch.as_tensor(I0), torch.as_tensor(I1)
-        with self._lock, torch.cuda.device(self._device):
-            key = tuple(I0.shape)
-            if key not in self._graphs:
-                self._graphs[key] = self._record(key)
-            graph, in0, in1, out, stats, launches, done = self._graphs[key]
-            stream = torch.cuda.current_stream()
-            stream.wait_event(done)  # the call before has read its results
-            in0.copy_(I0)
-            in1.copy_(I1)
-            graph.replay()
-            tvl1_inner_loop.launches += launches
-            flow = out.clone()
-            if iterations is not None:
-                iterations.extend(s.clone() for s in stats)
-            done.record(stream)
-        return flow
-
-
 @lru_cache(maxsize=32)
 def _make_solver(nx, ny, tau, lambda_, theta, nscales, fscale, zfactor, warps,
-                 epsilon, max_iters, dtype, device, plain, graph):
+                 epsilon, max_iters, dtype, device, plain):
     nscales = num_scales(nx, ny, nscales, zfactor)
     fscale = min(fscale, nscales)
     shapes = pyramid_shapes(nx, ny, nscales, zfactor)  # [(nx, ny)] finest first
@@ -180,15 +120,13 @@ def _make_solver(nx, ny, tau, lambda_, theta, nscales, fscale, zfactor, warps,
 
         return torch.stack([u1, u2], dim=-1)
 
-    if graph and device.type == "cuda":
-        return _GraphedSolver(solve, device, dtype)
     return solve
 
 
 def make_tvl1_solver(nx, ny, tau=0.25, lambda_=0.15, theta=0.3, nscales=100,
                      fscale=0, zfactor=0.5, warps=5, epsilon=0.01,
                      max_iters=MAX_ITERATIONS, dtype=torch.float32,
-                     device=None, plain=False, graph=False):
+                     device=None, plain=False):
     """Build a solver ``(I0, I1) -> flow (..., ny, nx, 2)`` for frames of one
     size: ``(ny, nx)`` images give one flow, ``(P, ny, nx)`` a batch of them.
     Images may be numpy arrays or tensors; the flow is a tensor on ``device``.
@@ -196,16 +134,13 @@ def make_tvl1_solver(nx, ny, tau=0.25, lambda_=0.15, theta=0.3, nscales=100,
     ``device``: None means the CUDA card, and raises where there is none;
     ``"cpu"`` solves with the plain version of the inner loop. ``plain=True``
     takes the plain version on any device (what ``chip_smoke.py`` holds the
-    kernel solver against on the card). ``graph=True`` replays the solve
-    from a CUDA graph recorded at the first call for an input shape (module
-    docstring); on the CPU it changes nothing. ``solve(I0, I1,
-    iterations=[])`` collects each inner launch's iteration counts. Solvers
-    are cached per size, parameters and device; f32 is the only dtype the
-    inner loop takes.
+    kernel solver against on the card). ``solve(I0, I1, iterations=[])``
+    collects each inner launch's iteration counts. Solvers are cached per
+    size, parameters and device; f32 is the only dtype the inner loop takes.
     """
     return _make_solver(nx, ny, tau, lambda_, theta, nscales, fscale, zfactor,
                         warps, epsilon, max_iters, dtype,
-                        resolve_device(device), plain, graph)
+                        resolve_device(device), plain)
 
 
 def tvl1_flow(I0, I1, device=None, **params):

@@ -35,7 +35,9 @@ Every other operation is the reference's, in its order, each rounded to f32.
 
 A wrapper given a CPU tensor computes the plain version; given a CUDA tensor
 it launches the kernel or raises. ``tvl1_inner_loop.launches`` counts the
-launches; ``ops/fused_stack.py`` keeps the registry.
+launches the wrapper makes, here and nowhere else (a launch recorded into a
+CUDA graph is not one, and neither is its replay);
+``ops/fused_stack.py`` keeps the registry.
 """
 
 from __future__ import annotations
@@ -206,7 +208,10 @@ def tvl1_inner_loop(I1wx, I1wy, rho_c, grad, u1, u2, p11, p12, p21, p22,
             partial.data_ptr(), stats[lo:hi].data_ptr(), hi - lo, ny, nx,
             l_t, taut, theta, eps2, int(max_iters), stream)
         _raise_on(lib, name, rc)
-        tvl1_inner_loop.launches += 1
+        # a stream that records a CUDA graph takes the launch down and runs
+        # nothing: only a launch that runs is counted
+        if not torch.cuda.is_current_stream_capturing():
+            tvl1_inner_loop.launches += 1
     res = tuple(out[k, 0] if single else out[k] for k in range(6))
     return (res, stats) if return_iterations else res
 

@@ -185,12 +185,15 @@ class AsyncFlowSolver:
     interface. That class solves on the host CPU because its accelerator runs
     one program at a time; a CUDA card runs several streams, so the worker
     solves ON THE CARD, on a stream of its own, beside the fine-tune's
-    kernels. A solve is one replay of a CUDA graph (``make_tvl1_solver(...,
-    graph=True)``; the first solve records it), so the worker leaves the
-    host, which the fine-tune's launches keep busy, alone. ``get(i)`` makes
-    the caller's current stream wait on the event recorded after solve ``i``
-    and hands over the ``(H, W, 2)`` tensor; the host does not wait for the
-    card there.
+    kernels. A solve is several thousand small launches, and the fine-tune
+    keeps the host busy with its own: the worker's first solve is made
+    launch by launch and then recorded into one CUDA graph, which every
+    solve from then on replays (the counterpart of the JAX package's
+    ``jax.jit``; the eager solve's bits). The graph and its buffers belong
+    to this object and go with ``close()``. ``get(i)`` waits for the worker,
+    which returns once solve ``i`` has ended on its stream, makes the
+    caller's current stream wait on the event recorded after the solve, and
+    hands over the ``(H, W, 2)`` tensor.
 
     ``params``: keywords of ``make_tvl1_solver`` (``DENOISING_PARAMS``);
     ``lookahead``: how many flows a caller should keep in flight (read by the
@@ -204,14 +207,25 @@ class AsyncFlowSolver:
         from ..flow.tvl1 import make_tvl1_solver
 
         self.device = resolve_device(device)
-        self._solve = make_tvl1_solver(W, H, device=self.device, graph=True,
-                                       **params)
+        self._solve = make_tvl1_solver(W, H, device=self.device, **params)
         self._cuda = self.device.type == "cuda"
         self._stream = torch.cuda.Stream(self.device) if self._cuda else None
+        self._graph = self._frames = self._flow = None
         self._pool = ThreadPoolExecutor(max_workers=1)
         self._futs = {}
         self.lookahead = lookahead
         self.solve_times = []
+
+    def _record(self):
+        """Solve once launch by launch (kernels build and load, which must
+        not happen while a stream records), then record the same solve on
+        the graph's own input, output and intermediate buffers."""
+        self._solve(*self._frames)
+        self._stream.synchronize()
+        self._graph = torch.cuda.CUDAGraph()
+        # thread_local: the caller's thread may allocate while this records
+        with torch.cuda.graph(self._graph, capture_error_mode="thread_local"):
+            self._flow = self._solve(*self._frames)
 
     def _work(self, cur_np, prev_np):
         t0 = time.perf_counter()
@@ -223,7 +237,17 @@ class AsyncFlowSolver:
             return flow, None
         # the current device and the current stream are per thread
         with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
-            flow = self._solve(cur, prev)
+            if self._graph is None:
+                self._frames = torch.empty(2, *cur.shape, dtype=torch.float32,
+                                           device=self.device)
+            self._frames[0].copy_(torch.from_numpy(cur))
+            self._frames[1].copy_(torch.from_numpy(prev))
+            if self._graph is None:
+                self._record()
+            # every solve runs on the one stream, in order: the replay
+            # starts after the solve before it has been copied out
+            self._graph.replay()
+            flow = self._flow.clone()
             done = torch.cuda.Event()
             done.record(self._stream)
             self._stream.synchronize()
@@ -247,7 +271,10 @@ class AsyncFlowSolver:
         return flow
 
     def close(self):
-        self._pool.shutdown(wait=False)
+        """Drop what is still queued, wait for the solve that runs, and
+        free the graph and its buffers."""
+        self._pool.shutdown(wait=True, cancel_futures=True)
+        self._graph = self._frames = self._flow = None
 
 
 def _memory_budget(device):

@@ -113,6 +113,29 @@ def test_kernel_wrappers_never_fall_back():
         assert body.count(f"{name}.launches += 1") == 1, name
 
 
+def test_launch_counts_are_written_only_where_a_kernel_launches():
+    """A count goes up by one inside its kernel's wrapper and is set to 0 by
+    the registry and where it is defined: no other module writes a count, and
+    nothing takes from one or adds a remembered number to it."""
+    writes = re.compile(r"(\w+)\.launches\s*([-+*/]?=)(?!=)\s*(\S+)")
+    found = {}
+    for f in sorted(PKG.rglob("*.py")):
+        for who, op, what in writes.findall(f.read_text()):
+            assert (op, what) in (("+=", "1"), ("=", "0")), (f.name, who, op)
+            if op == "+=":
+                found.setdefault(f.relative_to(PKG).as_posix(), []).append(who)
+    assert found == {
+        "ops/fused_stack.py": ["fwd_layer", "fwd_layer_eval",
+                               "fwd_layer_train", "bwd_layer"],
+        "ops/fused_ends.py": ["first_conv", "last_loss_fwd", "last_loss_bwd",
+                              "first_dw"],
+        "flow/tvl1_inner.py": ["tvl1_inner_loop"]}
+    # a launch that a stream records into a CUDA graph runs nothing
+    inner = (PKG / "flow" / "tvl1_inner.py").read_text()
+    assert re.search(r"if not torch\.cuda\.is_current_stream_capturing\(\):"
+                     r"\s+tvl1_inner_loop\.launches \+= 1", inner)
+
+
 def test_end_kernels_count_launches_without_the_registry():
     """``ops/fused_ends.py`` and ``flow/tvl1_inner.py`` imported alone,
     before ``ops/fused_stack.py`` and its registry, have their counters; the

@@ -135,12 +135,6 @@ def test_solver_is_cached_and_checks_its_frames():
     assert a is not ttvl1.make_tvl1_solver(64, 48, device="cpu", plain=True)
     with pytest.raises(ValueError, match="solver for"):
         a(np.zeros((48, 65), np.float32), np.zeros((48, 65), np.float32))
-    # graph=True records CUDA graphs; on the CPU it is the plain solve
-    rng = np.random.default_rng(0)
-    I0, I1 = rng.random((2, 48, 64)).astype(np.float32)
-    g = ttvl1.make_tvl1_solver(64, 48, device="cpu", graph=True, max_iters=3)
-    e = ttvl1.make_tvl1_solver(64, 48, device="cpu", max_iters=3)
-    assert torch.equal(g(I0, I1), e(I0, I1))
 
 
 def test_plain_twin_equals_the_solver_on_the_cpu(pair):
