@@ -50,10 +50,36 @@ Phases, any failure exits non-zero:
    record, since a replay goes through no wrapper), the replayed solve
    against the eager one, and the time of a flow alone and of a frame with
    its flow prefetched on a second stream;
-8. a JSON line of per-kernel numbers, then the card line, then the result
-   line ``{"ok": true, "device": {...}}``.
+8. the ``conv_impl`` routes' kernels (``ops/conv3x3.py`` kernel A,
+   ``ops/conv_dw.py`` kernel B): the port's library convolution against
+   float64 under PyTorch's default TF32 flags (the script sets none); A and
+   B against their plain versions at edge shapes (1->64, 64->64, 64->1,
+   3->64, 8->8 at 13x21, B=2, more than 64 channels) and at 540x960 64->64
+   (B on f32 and bf16 operands), within 1e-5 of the largest plain value, B's
+   bits on two runs; ``conv3x3_p2`` and ``conv3x3_dwflat`` once each; times
+   beside the bound, the plain version and a library call (``F.conv2d``,
+   ``aten.convolution_backward`` weight-only, with TF32 off);
+9. the ``conv_impl`` routes of the pretrained DnCNN-17 ("pallas", "hybrid",
+   "bf16res", "packed_bf16"): one step's gradients on the kernels against
+   the plain versions' backward from the same forward; two 540p frames
+   through ``process_frame`` (20 updates) on each route and on the f32
+   ``"xla"`` module route, with the launches a frame, losses within 0.5 %
+   and PSNR within 0.1 dB of the ``"xla"`` route's (1.5 % and 0.4 dB for
+   the bf16 graph of "packed_bf16"); times a frame;
+10. the streaming loop: a 5-frame 540p PGM sequence through the
+   ``blind_denoising`` CLI (``--network`` the checkpoint,
+   ``--compute_flow``: the flat route fed by ``AsyncFlowSolver``), then
+   ``run_blind_denoising`` with a ``"pallas"`` model over 3 frames with
+   ``.flo`` files: ``plot_psnr.txt``, a gain over the noisy frames, the
+   frames written, ``final.msgpack`` read back equal to the engine's state
+   bit for bit, launch counts, frames/s;
+11. a JSON line of per-kernel numbers (launches by path: each kernel is
+   launched on every path it belongs to and on no other), then the card
+   line, then the result line ``{"ok": true, "device": {...}}``.
 
-The script imports torch, numpy and the port only.
+The script imports torch, numpy and the port only. It sets no global flag:
+its library yardsticks on f32 operands run in the port's local no-TF32
+context (``no_tf32``).
 """
 
 from __future__ import annotations
@@ -118,6 +144,32 @@ ENDS_F32_RTOL = 1e-4
 # shorter than their wrappers' host time
 HEAD_START_CYCLES = 5_000_000
 ITERS = 20
+# kernels A and B (ops/conv3x3.py, ops/conv_dw.py) against their plain
+# versions: the same f32 products, summed in another order
+CONV_RTOL = 1e-5
+# one fine-tune step on a conv_impl route, gradients of the kernels' backward
+# against the plain versions' from the same forward: f32 sums in another
+# order through 17 layers, per parameter max |d| / max |ref|
+CONV_STEP_RTOL = 1e-4
+CONV_ROUTES = ("pallas", "hybrid", "bf16res", "packed_bf16")
+# launches a 540p frame of DnCNN-17 with ITERS updates: kernel A runs the 17
+# forwards and the 16 dX (the frame needs none) of every update and the 17
+# forwards of the eval denoise; kernel B every layer's dW of every update
+CONV_LAUNCHES = {
+    "pallas": {"conv3x3_fwd": ITERS * (17 + 16) + 17,
+               "dw_conv3x3": ITERS * 17},
+    "hybrid": {"dw_conv3x3": ITERS * 17},
+    "bf16res": {"dw_conv3x3": ITERS * 17},
+    "packed_bf16": {"dw_conv3x3": ITERS * 17},
+    "xla": {},
+}
+# "packed_bf16" against the f32 "xla" route: the JAX model's bf16 graph
+# rounds every activation and the BatchNorm affine to bf16 and carries bf16
+# cotangents, which takes it farther from f32 than the f32 routes' bounds
+# (measured on an H100: 0.91 % and 0.28 dB)
+BF16_GRAPH_LOSS_RTOL = 1.5e-2
+BF16_GRAPH_PSNR_TOL = 0.4  # dB
+STREAM_FRAMES = 5
 # the flow's inner loop against its plain version: the same f32 operations
 # in the same order and the error summed in double on both sides, so they
 # differ only if a stop decision does; 1e-5 px is ten f32 steps of a flow of
@@ -149,6 +201,15 @@ REPLACES = {
     "last_loss_bwd": "frame2frame_tpu/ops/fused_ends.py:378",
     "first_dw": "frame2frame_tpu/ops/fused_ends.py:485",
     "tvl1_inner_loop": "frame2frame_tpu/flow/tvl1_pallas.py:98",
+    "conv3x3_fwd": "frame2frame_tpu/ops/pallas_conv.py:91",
+    "dw_conv3x3": "frame2frame_tpu/ops/conv_dw.py:95",
+}
+# TPU kernels that compute the same function as the one named in REPLACES
+ALSO_REPLACES = {
+    "conv3x3_fwd": ["frame2frame_tpu/ops/pallas_conv.py:307"],
+    "dw_conv3x3": ["frame2frame_tpu/ops/conv_dw.py:163",
+                   "frame2frame_tpu/ops/pallas_conv.py:116",
+                   "frame2frame_tpu/ops/pallas_conv.py:331"],
 }
 SOURCES = {
     "fwd_layer": "frame2frame_tpu_torch/csrc/fused_stack.cu",
@@ -160,6 +221,8 @@ SOURCES = {
     "last_loss_bwd": "frame2frame_tpu_torch/csrc/fused_ends.cu",
     "first_dw": "frame2frame_tpu_torch/csrc/fused_ends.cu",
     "tvl1_inner_loop": "frame2frame_tpu_torch/csrc/tvl1_inner.cu",
+    "conv3x3_fwd": "frame2frame_tpu_torch/csrc/conv3x3.cu",
+    "dw_conv3x3": "frame2frame_tpu_torch/csrc/conv3x3.cu",
 }
 
 
@@ -214,6 +277,19 @@ def read_png_gray8(path):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+def no_tf32(fn):
+    """``fn`` run inside the port's local context that turns cuDNN's TF32
+    off (``ops._common._cudnn_f32``): a library yardstick on f32 operands
+    computes in f32, as the port's convolutions do, and the caller's flags
+    are left as they were."""
+    from frame2frame_tpu_torch.ops._common import _cudnn_f32
+
+    def run():
+        with _cudnn_f32():
+            return fn()
+    return run
 
 
 def card_line():
@@ -289,7 +365,7 @@ def kernel_phase(torch, F, fs, cuda_time_ms):
     def library(a):
         """F.conv2d on bf16 channels-last, operand prepared outside."""
         x = a.to(torch.bfloat16).permute(0, 3, 1, 2)
-        return lambda: F.conv2d(x, w_lib, padding=1)
+        return no_tf32(lambda: F.conv2d(x, w_lib, padding=1))
 
     cases = []
     for B in (1, 4):
@@ -434,10 +510,9 @@ def train_kernel_phase(torch, F, fs, cuda_time_ms):
         0, 3, 1, 2)
     dz_lib = g.permute(0, 3, 1, 2)
 
-    def library_bwd():
-        return torch.ops.aten.convolution_backward(
-            dz_lib, a_lib, w_lib, None, [1, 1], [1, 1], [1, 1], False,
-            [0, 0], 1, [True, True, False])
+    library_bwd = no_tf32(lambda: torch.ops.aten.convolution_backward(
+        dz_lib, a_lib, w_lib, None, [1, 1], [1, 1], [1, 1], False,
+        [0, 0], 1, [True, True, False]))
 
     act = z_prev.numel() * z_prev.element_size()
     small = wk.numel() * wk.element_size() + 2 * FEAT * 4
@@ -447,7 +522,7 @@ def train_kernel_phase(torch, F, fs, cuda_time_ms):
             ("fwd_layer_train",
              lambda: fs.fwd_layer_train(z_prev, wk, s, b),
              lambda: fs.fwd_layer_train_plain(z_prev, w, s, b, mma_bf16=True),
-             lambda: F.conv2d(a_lib, w_lib, padding=1),
+             no_tf32(lambda: F.conv2d(a_lib, w_lib, padding=1)),
              2 * act + small + 2 * FEAT * 4, flops, errs["z"]),
             ("bwd_layer",
              lambda: fs.bwd_layer(g, z_i, z_prev, wk, vecs, False),
@@ -593,9 +668,9 @@ def ends_kernel_phase(torch, F, fe, cuda_time_ms):
         memory_format=torch.channels_last)
     gp_lib = (d["da"] * (z1 > 0)).permute(0, 3, 1, 2)
     library = {
-        "first_conv": lambda: F.conv2d(x_lib, w_in_lib, padding=1),
-        "first_dw": lambda: torch.nn.grad.conv2d_weight(
-            x_lib, (FEAT, 1, 3, 3), gp_lib, padding=1),
+        "first_conv": no_tf32(lambda: F.conv2d(x_lib, w_in_lib, padding=1)),
+        "first_dw": no_tf32(lambda: torch.nn.grad.conv2d_weight(
+            x_lib, (FEAT, 1, 3, 3), gp_lib, padding=1)),
     }
 
     def nbytes(*tensors):
@@ -764,7 +839,8 @@ def training_phase(torch, fs, psnr, variables, model):
     comparisons)."""
     from frame2frame_tpu_torch.models import fused_apply as fa
     from frame2frame_tpu_torch.train import flat_step
-    from frame2frame_tpu_torch.models.dncnn import JaxRavel, param_leaves
+    from frame2frame_tpu_torch.models.dncnn import (
+        JaxRavel, from_jax_variables, param_leaves)
     from frame2frame_tpu_torch.ops.warp import (
         bilinear_warp_with_mask, occlusion_mask)
     from frame2frame_tpu_torch.train.online import OnlineDenoiser, torch_adam
@@ -952,9 +1028,11 @@ def training_phase(torch, fs, psnr, variables, model):
                      "rms_denoised_diff": routes_deno,
                      "max_abs_denoised_diff": routes_max}
 
-    # (c) the same two frames through the plain module's autograd in f32,
-    # with the same optimizer
-    ref = copy.deepcopy(model).to(dev)
+    # (c) the same two frames through the plain module's autograd in f32
+    # (conv_impl "xla": the library's convolutions without TF32), with the
+    # same optimizer
+    ref = from_jax_variables(variables, residual=True,
+                             conv_impl="xla").to(dev)
     tx = torch_adam(5e-5, 1e-5)
     flat = JaxRavel(ref)
     state = tx.init(flat.ravel())
@@ -1042,7 +1120,13 @@ def serving_phase(torch, fs, psnr):
     clean, noisy = synthetic_frames(B)
     dev = torch.device("cuda")
     with torch.no_grad():
-        plain = model.to(dev).eval()(torch.from_numpy(noisy).to(dev)).cpu().numpy()
+        # the f32 module forward: conv_impl "xla" (the default, "fused",
+        # runs the JAX model's bf16 graph on the module route)
+        f32_model = from_jax_variables(variables, residual=True,
+                                       conv_impl="xla")
+        plain = f32_model.to(dev).eval()(
+            torch.from_numpy(noisy).to(dev)).cpu().numpy()
+        del f32_model
     check(np.isfinite(plain).all(), "plain forward: non-finite output")
     p_noisy = [psnr(clean[k], noisy[k]) for k in range(B)]
     p_plain = [psnr(clean[k], plain[k]) for k in range(B)]
@@ -1539,6 +1623,429 @@ def flow_path_phase(torch, fs, psnr, variables, model, training):
     return launches, out
 
 
+def conv_inputs(torch, rng, B, h, wd, cin, cout):
+    """x (B, h, wd, cin), HWIO weights scaled to unit output variance, and a
+    cotangent (B, h, wd, cout), f32 on the card."""
+    x = rng.standard_normal((B, h, wd, cin), dtype=np.float32)
+    w = (rng.standard_normal((3, 3, cin, cout))
+         / np.sqrt(9 * cin)).astype(np.float32)
+    g = rng.standard_normal((B, h, wd, cout), dtype=np.float32)
+    return tuple(torch.from_numpy(a).cuda() for a in (x, w, g))
+
+
+def conv_kernel_phase(torch, F, cuda_time_ms):
+    """Kernels A (``conv3x3_fwd``) and B (``dw_conv3x3``) against their
+    plain versions at edge shapes and at 540x960 64->64 (B on f32 and bf16
+    operands), B's bits on two runs, times beside the bound and a library
+    yardstick; ``conv3x3_p2`` and ``conv3x3_dwflat`` once each. Returns the
+    per-kernel rows."""
+    from frame2frame_tpu_torch.ops import conv3x3 as c3
+    from frame2frame_tpu_torch.ops import conv_dw as cdw
+    from frame2frame_tpu_torch.ops import fused_stack as fs
+    from frame2frame_tpu_torch.ops._common import conv2d
+
+    rng = np.random.default_rng(11)
+
+    def hold(tag, got, ref):
+        check(got.shape == ref.shape and got.dtype == ref.dtype,
+              f"{tag}: shape/dtype {tuple(got.shape)} {got.dtype}")
+        check(bool(torch.isfinite(got).all()), f"{tag}: non-finite output")
+        err, scale = rel_err(got, ref)
+        check(err <= CONV_RTOL * scale,
+              f"{tag}: max|kernel-plain| {err} > {CONV_RTOL} * {scale}")
+        return err, scale
+
+    # the port's library convolution is f32 under PyTorch's default flags,
+    # which let cuDNN take TF32 (10-bit mantissa, ~1e-3 off)
+    x, w, g = conv_inputs(torch, rng, 1, 64, 96, FEAT, FEAT)
+    results = []
+    for dt in (torch.float64, torch.float32):
+        xr = x.to(dt).permute(0, 3, 1, 2).requires_grad_()
+        wr = w.to(dt).permute(3, 2, 0, 1).requires_grad_()
+        y = (no_tf32(lambda: F.conv2d(xr, wr, padding=1))()
+             if dt == torch.float64 else conv2d(xr, wr))
+        y.backward(g.to(dt).permute(0, 3, 1, 2))
+        results.append((y.detach(), xr.grad, wr.grad))
+    for what, ref, got in zip(("forward", "dX", "dW"), *results):
+        err, scale = rel_err(got, ref)
+        print(f"conv f32: the port's library convolution, {what}, against "
+              f"float64 {err / scale:.3e} of its largest value "
+              f"(cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}, "
+              f"matmul.allow_tf32 {torch.backends.cuda.matmul.allow_tf32})",
+              flush=True)
+        check(err <= CONV_RTOL * scale, f"the port's f32 convolution's {what}"
+              f" ran in reduced precision: {err / scale} off float64")
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "f32 matmuls (the plain versions' einsums) would run in TF32")
+
+    for B, h, wd, cin, cout in ((1, 13, 21, 1, 64), (2, 13, 21, 64, 64),
+                                (1, 13, 21, 64, 1), (2, 13, 21, 3, 64),
+                                (2, 13, 21, 8, 8), (1, 1, 1, 64, 64),
+                                (1, 37, 50, 64, 16), (1, 9, 20, 80, 72)):
+        tag = f"{(B, h, wd, cin, cout)}"
+        x, w, g = conv_inputs(torch, rng, B, h, wd, cin, cout)
+        y = c3.conv3x3_fwd(x, w)
+        torch.cuda.synchronize()
+        hold(f"conv3x3_fwd {tag}", y, c3.conv3x3_fwd_plain(x, w))
+        for dt in (torch.float32, torch.bfloat16):
+            xd, gd = x.to(dt), g.to(dt)
+            d1 = cdw.dw_conv3x3(xd, gd)
+            d2 = cdw.dw_conv3x3(xd, gd)
+            torch.cuda.synchronize()
+            check(torch.equal(d1, d2), f"dw_conv3x3 {tag} {dt}: two runs "
+                  "differ")
+            hold(f"dw_conv3x3 {tag} {dt}", d1, cdw.dw_conv3x3_plain(xd, gd))
+    print("conv kernels edge shapes: ok", flush=True)
+
+    # the differentiable convolutions on rows 11-12 and row 8's names, once
+    # each, against the same functions on the plain versions
+    x, w, g = conv_inputs(torch, rng, 2, 24, 40, FEAT, FEAT)
+    for name, fn, launches in (
+            ("conv3x3_p2", c3.conv3x3_p2, {"conv3x3_fwd": 2,
+                                           "dw_conv3x3": 1}),
+            ("conv3x3_dwflat", cdw.conv3x3_dwflat, {"dw_conv3x3": 1})):
+        results = []
+        for plain in (False, True):
+            xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+            before = dict(fs.launch_counts())
+            if plain:
+                y = (c3.conv3x3(xr, wr, c3.plain_dx, cdw.dw_conv3x3_plain)
+                     if name == "conv3x3_p2"
+                     else cdw.conv3x3_dwflat(xr, wr, cdw.dw_conv3x3_plain))
+            else:
+                y = fn(xr, wr)
+            y.backward(g)
+            torch.cuda.synchronize()
+            after = fs.launch_counts()
+            if not plain:
+                for k, n in after.items():
+                    check(n - before[k] == launches.get(k, 0),
+                          f"{name}: {k} launched {n - before[k]} times")
+            results.append((y.detach(), xr.grad, wr.grad))
+        for what, a, b in zip(("y", "dX", "dW"), *results):
+            if name == "conv3x3_p2" or what == "dW":
+                hold(f"{name} {what}", a, b)
+    print("conv3x3_p2, conv3x3_dwflat: forward, dX and dW against the plain "
+          "versions: ok", flush=True)
+
+    # 540x960, 64 -> 64, the shape of the mid layers
+    x, w, g = conv_inputs(torch, rng, 1, H, W, FEAT, FEAT)
+    w_lib = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    flops = 2 * H * W * FEAT * FEAT * 9
+    act = x.numel() * 4
+    warm = lambda: c3.conv3x3_fwd(x, w)  # noqa: E731
+    for _ in range(20):  # bring the clocks up before the first timing
+        warm()
+    rows = {"conv3x3_fwd": [], "dw_conv3x3": []}
+    cases = [("conv3x3_fwd", "float32", lambda: c3.conv3x3_fwd(x, w),
+              lambda: c3.conv3x3_fwd_plain(x, w),
+              no_tf32(lambda: F.conv2d(x.permute(0, 3, 1, 2), w_lib,
+                                       padding=1)),
+              2 * act + w.numel() * 4, F32_FLOP_PER_S)]
+    for dt, peak in ((torch.float32, F32_FLOP_PER_S),
+                     (torch.bfloat16, BF16_FLOP_PER_S)):
+        xd, gd = x.to(dt), g.to(dt)
+        xl, gl = xd.permute(0, 3, 1, 2), gd.permute(0, 3, 1, 2)
+        wl = w_lib.to(dt)
+        cases.append((
+            "dw_conv3x3", str(dt).replace("torch.", ""),
+            functools.partial(cdw.dw_conv3x3, xd, gd),
+            functools.partial(cdw.dw_conv3x3_plain, xd, gd),
+            no_tf32(functools.partial(
+                torch.ops.aten.convolution_backward, gl, xl, wl, None,
+                [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+                [False, True, False])),
+            2 * xd.numel() * xd.element_size() + 9 * FEAT * FEAT * 4, peak))
+    for name, dtype, kern, plain, library, nbytes, peak in cases:
+        got = kern()
+        torch.cuda.synchronize()
+        err, scale = hold(f"{name} 540p {dtype}", got, plain())
+        if name == "dw_conv3x3":
+            again = kern()
+            torch.cuda.synchronize()
+            check(torch.equal(got, again), f"{name} 540p {dtype}: two runs "
+                  "differ")
+        ms = cuda_time_ms(kern)
+        plain_ms = cuda_time_ms(plain, iters=5)
+        library_ms = cuda_time_ms(library)
+        bms, by = bound_ms(nbytes, flops, peak)
+        row = {"B": 1, "dtype": dtype, "max_abs_err": err,
+               "max_abs_plain": scale, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "bound_ms": bms, "bound_by": by}
+        print(f"kernel {name} 540p {dtype}: err {err:.3e} (plain max "
+              f"{scale:.3e}) ms {ms:.4f} plain {plain_ms:.4f} library "
+              f"{library_ms:.4f} bound {bms:.4f} ({by})", flush=True)
+        rows[name].append(row)
+    del x, g, cases
+    torch.cuda.empty_cache()
+    return rows
+
+
+def count_run(torch, fs, want, what):
+    """The launch counts of the run between two calls, held to ``want``
+    (every kernel not named there: 0)."""
+    before = dict(fs.launch_counts())
+
+    def done():
+        after = fs.launch_counts()
+        for k, n in after.items():
+            check(n - before[k] == want.get(k, 0),
+                  f"{what}: {k} launched {n - before[k]} times, expected "
+                  f"{want.get(k, 0)}")
+    return done
+
+
+def conv_impl_phase(torch, fs, psnr, variables):
+    """The pretrained DnCNN-17 fine-tuned on two 540p frames through
+    ``OnlineDenoiser.process_frame`` on the ``conv_impl`` routes; returns
+    (launch counts by route, timings and comparisons)."""
+    from frame2frame_tpu_torch.models.dncnn import (
+        from_jax_variables, param_leaves)
+    from frame2frame_tpu_torch.ops.warp import (
+        bilinear_warp_with_mask, occlusion_mask)
+    from frame2frame_tpu_torch.train.online import OnlineDenoiser
+
+    dev = torch.device("cuda")
+    clean, noisy, flows = moving_frames(3)
+    frames = torch.from_numpy(noisy).to(dev)
+    flow_t = torch.from_numpy(flows).to(dev)
+    with torch.no_grad():
+        warped, mask = bilinear_warp_with_mask(frames[0], flow_t[1])
+        mask = occlusion_mask(flow_t[1], mask)
+        target = mask * warped
+    out, launches = {}, {}
+
+    # (a) one step on each route: the kernels' backward against the plain
+    # versions' from the same forward (the same activations, ReLU decisions
+    # and L1 signs)
+    for impl in CONV_ROUTES:
+        grads = []
+        for plain in (False, True):
+            m = from_jax_variables(variables, residual=True,
+                                   conv_impl=impl).to(dev)
+            m.plain_backward = plain
+            m.train()
+            loss = (mask * m(frames[1][None])[0] - target).abs().sum()
+            loss.backward()
+            torch.cuda.synchronize()
+            grads.append({n: p.grad for n, p in param_leaves(m)})
+            del m
+        rel = {}
+        for n, gk in grads[0].items():
+            check(bool(torch.isfinite(gk).all()),
+                  f"{impl} one step: non-finite gradient of {n}")
+            err, scale = rel_err(gk, grads[1][n])
+            rel[n] = err / scale
+        worst = max(rel, key=rel.get)
+        print(f"conv_impl {impl} one step: gradients of the kernels' "
+              f"backward against the plain versions', worst {worst} "
+              f"{rel[worst]:.3e}", flush=True)
+        check(rel[worst] <= CONV_STEP_RTOL,
+              f"{impl} one step: gradient of {worst} off by {rel[worst]}")
+        out[f"{impl}/one_step_worst_grad_rel_err"] = rel[worst]
+        del grads
+        torch.cuda.empty_cache()
+
+    # (b) two frames through the engine on each route and on the f32 module
+    # route ("xla"), launch counts a frame
+    results = {}
+    for impl in ("xla",) + CONV_ROUTES:
+        model = from_jax_variables(variables, residual=True, conv_impl=impl)
+        eng = OnlineDenoiser(model, variables, iters=ITERS,
+                             residual_model=True)
+        fs.reset_launch_counts()
+        denos, losses, secs = [], [], []
+        for k in (1, 2):
+            done = count_run(torch, fs, CONV_LAUNCHES[impl],
+                             f"{impl} process_frame {k}")
+            t0 = time.perf_counter()
+            deno, ls = eng.process_frame(frames[k], frames[k - 1], flow_t[k])
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            done()
+            ls = ls.cpu().numpy()
+            check(deno.shape == (H, W, 1) and ls.shape == (ITERS,)
+                  and np.isfinite(ls).all()
+                  and bool(torch.isfinite(deno).all()),
+                  f"{impl} process_frame {k}: shapes or non-finite output")
+            check(ls[-1] < ls[0], f"{impl} process_frame {k}: loss did not "
+                  f"fall ({ls[0]} -> {ls[-1]})")
+            denos.append(deno.cpu().numpy())
+            losses.append(ls)
+        launches[impl] = fs.launch_counts()
+        prof = profile_call(
+            torch, lambda: eng.process_frame(frames[2], frames[1], flow_t[2]),
+            iters=1, top=8)
+        prof["frames_per_s"] = 1e3 / prof["ms"]
+        prof["counted_run_s"] = secs
+        out[f"{impl}/process_frame"] = prof
+        print(f"conv_impl {impl} process_frame: " + json.dumps(prof),
+              flush=True)
+        results[impl] = (denos, losses)
+        del eng, model
+        torch.cuda.empty_cache()
+    ref_denos, ref_losses = results["xla"]
+    for impl in CONV_ROUTES:
+        denos, losses = results[impl]
+        worst_loss = worst_psnr = 0.0
+        for i, k in enumerate((1, 2)):
+            dls = float(np.abs(losses[i] / ref_losses[i] - 1).max())
+            pk, pr = psnr(clean[k], denos[i]), psnr(clean[k], ref_denos[i])
+            pn = psnr(clean[k], noisy[k])
+            print(f"conv_impl {impl} frame {k}: loss {losses[i][0]:.2f} -> "
+                  f"{losses[i][-1]:.2f} (xla {ref_losses[i][0]:.2f} -> "
+                  f"{ref_losses[i][-1]:.2f}, worst rel {dls:.3e}); psnr "
+                  f"noisy {pn:.4f} route {pk:.4f} xla {pr:.4f} dB",
+                  flush=True)
+            check(pk - pn > MIN_GAIN_DB,
+                  f"{impl} frame {k}: denoising gain {pk - pn} dB")
+            worst_loss = max(worst_loss, dls)
+            worst_psnr = max(worst_psnr, abs(pk - pr))
+            out[f"{impl}/frame_{k}"] = {"psnr_noisy": pn, "psnr": pk,
+                                        "psnr_xla": pr}
+        bf16 = impl == "packed_bf16"
+        loss_tol = BF16_GRAPH_LOSS_RTOL if bf16 else TRAIN_LOSS_RTOL
+        psnr_tol = BF16_GRAPH_PSNR_TOL if bf16 else TRAIN_PSNR_TOL
+        check(worst_loss <= loss_tol,
+              f"{impl}: losses off the f32 xla route's by {worst_loss}")
+        check(worst_psnr <= psnr_tol,
+              f"{impl}: psnr off the f32 xla route's by {worst_psnr} dB")
+        out[f"{impl}/worst_loss_rel_err"] = worst_loss
+        out[f"{impl}/worst_psnr_diff_db"] = worst_psnr
+    return launches, out
+
+
+def _same_tree(a, b, path=""):
+    if isinstance(b, dict):
+        check(isinstance(a, dict) and a.keys() == b.keys(),
+              f"final.msgpack: keys at {path or 'the top'} differ")
+        for k in b:
+            _same_tree(a[k], b[k], f"{path}/{k}")
+        return
+    a, b = np.asarray(a), np.asarray(b)
+    check(a.dtype == b.dtype and a.shape == b.shape
+          and a.tobytes() == b.tobytes(),
+          f"final.msgpack: {path} differs from the engine's state")
+
+
+def streaming_phase(torch, fs, psnr, variables):
+    """The streaming loop: a 5-frame 540p PGM sequence through the CLI on
+    the flat route with ``AsyncFlowSolver``, then ``run_blind_denoising``
+    with a ``"pallas"`` model over 3 frames with ``.flo`` files; returns
+    (launch counts of both runs, timings and checks)."""
+    import tempfile
+
+    from frame2frame_tpu_torch.cli import blind_denoising as cli
+    from frame2frame_tpu_torch.io.flo import write_flo
+    from frame2frame_tpu_torch.io.image import read_pgm, write_pgm
+    from frame2frame_tpu_torch.models.dncnn import (
+        from_jax_variables, opt_state_to_jax)
+    from frame2frame_tpu_torch.models.serialization import load_variables
+    from frame2frame_tpu_torch.train import online
+
+    clean, noisy, flows = moving_frames(STREAM_FRAMES, seed=5)
+    made = []
+    engine_class = online.OnlineDenoiser
+
+    class Recording(engine_class):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+
+    out, launches = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        for i in range(1, STREAM_FRAMES + 1):
+            for name, img in (("noisy", noisy), ("clean", clean)):
+                write_pgm(d / f"{name}_{i:03d}.pgm",
+                          np.round(255.0 * img[i - 1, ..., 0]))
+            write_flo(d / f"flow_{i:03d}.flo", flows[i - 1])
+
+        def gain_check(tag, run_dir, first, last):
+            lines = (run_dir / "plot_psnr.txt").read_text().splitlines()
+            check(len(lines) == last - first,
+                  f"{tag}: {len(lines)} lines in plot_psnr.txt")
+            gains = []
+            for i, line in zip(range(first + 1, last + 1), lines):
+                ref = read_pgm(d / f"clean_{i:03d}.pgm") / 255.0
+                pn = psnr(ref, read_pgm(d / f"noisy_{i:03d}.pgm") / 255.0)
+                frame = read_pgm(run_dir / f"{i:03d}.pgm")
+                check(frame.shape == (H, W), f"{tag}: frame {i} shape")
+                gains.append(float(line) - pn)
+            check(min(gains) > MIN_GAIN_DB, f"{tag}: psnr gains {gains}")
+            return [float(v) for v in lines], gains
+
+        def read_back(tag, run_dir):
+            eng = made.pop()
+            v = eng.variables
+            _same_tree(load_variables(run_dir / "final.msgpack"),
+                       {"params": v["params"],
+                        "opt_state": opt_state_to_jax(eng.opt_state),
+                        "batch_stats": v["batch_stats"]})
+
+        online.OnlineDenoiser = Recording
+        try:
+            run = d / "cli"
+            run.mkdir()
+            fs.reset_launch_counts()
+            nf = STREAM_FRAMES - 1
+            done = count_run(torch, fs, {
+                "fwd_layer": NMID * nf, "fwd_layer_train": NMID * ITERS * nf,
+                "bwd_layer": NMID * ITERS * nf,
+                **dict.fromkeys(("first_conv", "last_loss_fwd",
+                                 "last_loss_bwd", "first_dw"), ITERS * nf),
+                "tvl1_inner_loop": FLOW_LAUNCHES_540P}, "streaming CLI")
+            t0 = time.perf_counter()
+            cli.main(["--input", str(d / "noisy_%03d.pgm"),
+                      "--ref", str(d / "clean_%03d.pgm"),
+                      "--output", str(run / "%03d.pgm"),
+                      "--output_psnr", str(run / "plot_psnr.txt"),
+                      "--output_network", str(run / "final.msgpack"),
+                      "--first", "1", "--last", str(STREAM_FRAMES),
+                      "--iter", str(ITERS), "--network", str(CKPT),
+                      "--compute_flow"])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            done()
+            launches["stream"] = fs.launch_counts()
+            lines, gains = gain_check("streaming CLI", run, 1, STREAM_FRAMES)
+            read_back("streaming CLI", run)
+            out["cli"] = {"frames": nf, "s": secs, "frames_per_s": nf / secs,
+                          "psnr": lines, "gain_db": gains}
+            print("streaming CLI (flat route, AsyncFlowSolver): "
+                  + json.dumps(out["cli"]), flush=True)
+
+            run = d / "pallas"
+            run.mkdir()
+            fs.reset_launch_counts()
+            want = {k: 2 * n for k, n in CONV_LAUNCHES["pallas"].items()}
+            done = count_run(torch, fs, want, "streaming pallas")
+            t0 = time.perf_counter()
+            online.run_blind_denoising(
+                from_jax_variables(variables, conv_impl="pallas"), variables,
+                input_tmpl=str(d / "noisy_%03d.pgm"),
+                flow_tmpl=str(d / "flow_%03d.flo"),
+                ref_tmpl=str(d / "clean_%03d.pgm"),
+                output_tmpl=str(run / "%03d.pgm"),
+                output_psnr=str(run / "plot_psnr.txt"),
+                output_network=str(run / "final.msgpack"),
+                first=1, last=3, iters=ITERS)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            done()
+            launches["stream_pallas"] = fs.launch_counts()
+            lines, gains = gain_check("streaming pallas", run, 1, 3)
+            read_back("streaming pallas", run)
+            out["pallas"] = {"frames": 2, "s": secs,
+                             "frames_per_s": 2 / secs, "psnr": lines,
+                             "gain_db": gains}
+            print("streaming run_blind_denoising (pallas, .flo files): "
+                  + json.dumps(out["pallas"]), flush=True)
+        finally:
+            online.OnlineDenoiser = engine_class
+    return launches, out
+
+
 def main():
     if not (REPO / "frame2frame_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke: the port's package frame2frame_tpu_torch is not "
@@ -1552,8 +2059,6 @@ def main():
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     from frame2frame_tpu_torch.ops import _build
     from frame2frame_tpu_torch.ops import fused_ends as fe
     from frame2frame_tpu_torch.ops import fused_stack as fs
@@ -1580,12 +2085,26 @@ def main():
         rows.update(train_kernel_phase(torch, F, fs, cuda_time_ms))
         rows.update(ends_kernel_phase(torch, F, fe, cuda_time_ms))
         rows.update(flow_kernel_phase(torch, cuda_time_ms))
+        t0 = time.perf_counter()
+        rows.update(conv_kernel_phase(torch, F, cuda_time_ms))
+        print(f"phase time: conv kernels {time.perf_counter() - t0:.1f} s",
+              flush=True)
         serve_launches, timings, variables, model = serving_phase(
             torch, fs, psnr)
         train_launches, flat_launches, training = training_phase(
             torch, fs, psnr, variables, model)
         flow_launches, flow = flow_path_phase(
             torch, fs, psnr, variables, model, training)
+        del model
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        conv_launches, conv_impl = conv_impl_phase(torch, fs, psnr, variables)
+        print(f"phase time: conv_impl routes {time.perf_counter() - t0:.1f} "
+              "s", flush=True)
+        t0 = time.perf_counter()
+        stream_launches, stream = streaming_phase(torch, fs, psnr, variables)
+        print(f"phase time: streaming loop {time.perf_counter() - t0:.1f} s",
+              flush=True)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -1593,30 +2112,44 @@ def main():
     # each path ran with the counts set to 0 just before it and read just
     # after; a kernel must have been launched on every path it belongs to
     # (training: the per-iteration route; flat: the flat route, which the
-    # engine takes by itself; flow: the flat route fed by AsyncFlowSolver)
-    paths = {"fwd_layer": ("serving", "training", "flat", "flow"),
+    # engine takes by itself; flow: the flat route fed by AsyncFlowSolver;
+    # conv_<impl>: the engine on a conv_impl route; stream: the CLI's loop
+    # on the flat route with AsyncFlowSolver; stream_pallas: the loop on
+    # the "pallas" route), and on no other path
+    ends = ("flat", "flow", "stream")
+    fused = ("training",) + ends
+    conv_paths = tuple(f"conv_{impl}" for impl in CONV_ROUTES)
+    paths = {"fwd_layer": ("serving",) + fused,
              "fwd_layer_eval": ("serving",),
-             "fwd_layer_train": ("training", "flat", "flow"),
-             "bwd_layer": ("training", "flat", "flow"),
-             "first_conv": ("flat", "flow"), "last_loss_fwd": ("flat", "flow"),
-             "last_loss_bwd": ("flat", "flow"), "first_dw": ("flat", "flow"),
-             "tvl1_inner_loop": ("flow",)}
+             "fwd_layer_train": fused, "bwd_layer": fused,
+             "first_conv": ends, "last_loss_fwd": ends,
+             "last_loss_bwd": ends, "first_dw": ends,
+             "tvl1_inner_loop": ("flow", "stream"),
+             "conv3x3_fwd": ("conv_pallas", "stream_pallas"),
+             "dw_conv3x3": conv_paths + ("stream_pallas",)}
     by_path = {"serving": serve_launches, "training": train_launches,
-               "flat": flat_launches, "flow": flow_launches}
+               "flat": flat_launches, "flow": flow_launches,
+               "stream": stream_launches["stream"],
+               "stream_pallas": stream_launches["stream_pallas"],
+               **{f"conv_{impl}": conv_launches[impl]
+                  for impl in CONV_ROUTES}}
     for name, on in paths.items():
-        for path in on:
-            if by_path[path][name] <= 0:
-                print(f"chip_smoke: FAIL: {name} was not launched on the "
-                      f"{path} path", file=sys.stderr)
+        for path, counts in by_path.items():
+            if (counts[name] > 0) != (path in on):
+                print(f"chip_smoke: FAIL: {name} was launched "
+                      f"{counts[name]} times on the {path} path",
+                      file=sys.stderr)
                 return 1
     kernels = []
     for name, cfgs in rows.items():
-        # B=1 bf16, and 135x240 for the flow's inner loop (the finest scale
-        # a 540p flow solves): the shape the main paths give it
+        # B=1 bf16, 135x240 for the flow's inner loop (the finest scale a
+        # 540p flow solves), 540p f32 for the conv_impl routes' kernels
+        # (their first row): the shape the main paths give them
         main_row = cfgs[0]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
+            "also_replaces": ALSO_REPLACES.get(name, []),
             "launches": sum(by_path[p][name] for p in paths[name]),
             "launches_by_path": {p: by_path[p][name] for p in paths[name]},
             "max_abs_err": main_row["max_abs_err"], "ms": main_row["ms"],
@@ -1625,7 +2158,8 @@ def main():
             "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"], "configs": cfgs})
     print(json.dumps({"kernels": kernels, "serving": timings,
-                      "training": training, "flow": flow}))
+                      "training": training, "flow": flow,
+                      "conv_impl": conv_impl, "streaming": stream}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,9 @@
 The port's own copy of ``frame2frame_tpu/io/image.py``, the replacement for
 the reference's skimage/tifffile readers (blind_denoising.py:170-201,232-238)
 and the C ``iio`` float reader (tvl1flow/main.c:44-51). PIL is imported inside
-the functions that need it, so the module imports, and PGM files are read and
-written, on a machine without it.
+the functions that need it, so the module imports on a machine without it;
+binary PGM files (``.pgm``) are read and written by ``read_pgm`` /
+``write_pgm`` without PIL, to the values and bytes PIL gives.
 
 Conventions matching the reference:
 - ``read_gray`` returns float64 luma in [0, 1] for integer images, matching
@@ -30,8 +31,14 @@ def is_tiff(path):
     return os.fspath(path).lower().endswith(TIFF_EXTS)
 
 
+def is_pgm(path):
+    return os.fspath(path).lower().endswith(".pgm")
+
+
 def read_image(path):
     """Read an image file -> numpy array (H, W) or (H, W, C), native dtype."""
+    if is_pgm(path):
+        return read_pgm(path)
     from PIL import Image
 
     return np.asarray(Image.open(os.fspath(path)))
@@ -69,10 +76,13 @@ def write_gray(path, img):
     """Write a grayscale image as the reference does
     (blind_denoising.py:232-238): tiff gets raw float32 (the caller already
     scaled by 255), other formats uint8 after clipping to [0, 255]."""
-    from PIL import Image
-
     path = os.fspath(path)
     img = np.asarray(img)
+    if is_pgm(path):
+        write_pgm(path, img)
+        return
+    from PIL import Image
+
     if is_tiff(path):
         Image.fromarray(img.astype(np.float32)).save(path)
         return
@@ -88,7 +98,8 @@ def write_pgm(path, img, maxval=255):
 
 
 def read_pgm(path):
-    """Read a binary PGM (P5) grayscale image -> uint8 (H, W)."""
+    """Read a binary PGM (P5) grayscale image with maxval 255 -> uint8
+    (H, W)."""
     with open(path, "rb") as f:
         data = f.read()
     if not data.startswith(b"P5"):
@@ -108,5 +119,8 @@ def read_pgm(path):
             idx += 1
         parts.append(int(data[start:idx]))
     idx += 1  # the single whitespace after maxval
-    w, h, _maxval = parts
+    w, h, maxval = parts
+    if maxval != 255:
+        raise ValueError(f"PGM with maxval {maxval}: only 8-bit frames with "
+                         "maxval 255 are read")
     return np.frombuffer(data, np.uint8, count=w * h, offset=idx).reshape(h, w)

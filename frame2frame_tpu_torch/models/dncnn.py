@@ -6,34 +6,78 @@ Submodules carry the Flax names ``conv_in``, ``conv_{i}``, ``bn_{i}`` and
 ``conv_out``, so a JAX variable tree maps onto the module name for name
 (``from_jax_variables`` / ``to_jax_variables``), and the flat optimizer state
 of ``train.online.torch_adam`` crosses over in the JAX package's
-``ravel_pytree`` order (``opt_state_from_jax`` / ``opt_state_to_jax``).
+``ravel_pytree`` order (``opt_state_from_jax`` / ``opt_state_to_jax``). The
+parameters have the same names and shapes under every ``conv_impl``.
 
 Two output conventions, as in the JAX model:
 - ``residual=False``: returns the predicted noise;
 - ``residual=True``: returns the denoised image ``x - noise``.
 
-``forward`` is the plain module graph; frames are NHWC ``(B, H, W, C)`` at
-the interface, as in the JAX package. In training mode BatchNorm follows the
-JAX package, not ``nn.BatchNorm2d``: it normalises with the batch's biased
-variance and also stores that biased variance in the running statistics
-(``nn.BatchNorm2d`` would store the unbiased one).
+``forward`` is the module route; frames are NHWC ``(B, H, W, C)`` at the
+interface, as in the JAX package. ``conv_impl`` picks its convolutions as
+the JAX model's does (``CONV_IMPLS``):
+
+- ``"xla"``, ``"packed"``: the f32 graph on the library's convolution
+  (TF32 off). The JAX package's pair packing is a TPU layout, and its
+  packed BatchNorm the same math.
+- ``"pallas"``, ``"hybrid"``, ``"bf16res"``: the f32 graph on
+  ``ops/conv3x3.py``'s ``conv3x3``, ``conv3x3_hybrid``, ``conv3x3_bf16res``.
+- ``"packed_bf16"``: bf16 convolution operands and activations
+  (``conv3x3_bf16``, dW in f32 on kernel B for every layer); BatchNorm's
+  statistics in f32, its affine cast to bf16 (``PackedBatchNorm``).
+- ``"fused"`` (the port's default; the JAX package's ``init_dncnn`` picks it
+  on its accelerator): the engine (``train/online.py``) runs the fused
+  kernels where ``fused_apply.can_fuse``; the module route is what the JAX
+  model runs for it, the ``"packed_bf16"`` graph.
+- ``"packed_bf16"`` and ``"fused"`` on an odd width: the f32 graph, as the
+  JAX model falls back per call (pair packing needs an even width).
+
+In training mode BatchNorm normalises with the batch's biased variance and
+stores that biased variance in the running statistics (``nn.BatchNorm2d``
+would store the unbiased one); the running statistics are updated once, after
+the forward, so that a checkpointed group (``remat_every``) that runs its
+forward again in the backward does not update them twice.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from ..ops.conv3x3 import conv_function
+
+CONV_IMPLS = ("fused", "xla", "packed", "packed_bf16", "pallas", "hybrid",
+              "bf16res")
+BN_MOMENTUM = 0.9  # flax convention: new = m * old + (1 - m) * batch
 
 
 class DnCNN(nn.Module):
-    def __init__(self, channels=1, num_layers=17, features=64, residual=False):
+    """``remat_every`` > 0 checkpoints groups of that many mid layers in a
+    training forward (``torch.utils.checkpoint``): only the groups' inputs
+    are kept, and each group runs its forward again in the backward.
+    ``plain_backward``, an attribute off by default, takes the plain
+    versions of the kernels in the backward of the ``conv_impl`` routes
+    (``ops.conv3x3.conv_function``)."""
+
+    def __init__(self, channels=1, num_layers=17, features=64, residual=False,
+                 conv_impl="fused", remat_every=0):
         super().__init__()
+        if conv_impl not in CONV_IMPLS:
+            raise ValueError(f"conv_impl must be one of {CONV_IMPLS}, got "
+                             f"{conv_impl!r}")
         self.channels = channels
         self.num_layers = num_layers
         self.features = features
         self.residual = residual
+        self.conv_impl = conv_impl
+        self.remat_every = remat_every
+        self.plain_backward = False
+        # parameter holders: forward takes their weights, never calls them
         self.conv_in = nn.Conv2d(channels, features, 3, padding=1, bias=False)
         for i in range(num_layers - 2):
             setattr(self, f"conv_{i}",
@@ -51,26 +95,111 @@ class DnCNN(nn.Module):
         return getattr(self, f"conv_{i}"), getattr(self, f"bn_{i}")
 
     def forward(self, x):
-        """x: (B, H, W, C) -> noise or denoised image, (B, H, W, C)."""
-        h = torch.relu(self.conv_in(x.permute(0, 3, 1, 2)))
-        for i in range(self.nmid):
-            conv, bn = self.mid(i)
-            h = torch.relu(self._bn_train(bn, conv(h)) if self.training
-                           else bn(conv(h)))
-        noise = self.conv_out(h).permute(0, 2, 3, 1)
+        """x: (B, H, W, C) f32 -> noise or denoised image, (B, H, W, C) f32."""
+        impl = self.conv_impl
+        if impl in ("packed_bf16", "fused"):
+            impl = "bf16" if x.shape[2] % 2 == 0 else "xla"
+        bf16 = impl == "bf16"
+        conv = conv_function(impl, self.plain_backward)
+        bn = _bn_bf16 if bf16 else _bn_f32
+        h = x.to(torch.bfloat16) if bf16 else x
+        h = torch.relu(conv(h, _kernel(self.conv_in)))
+
+        def group(h, i0, k):
+            stats = []
+            for i in range(i0, i0 + k):
+                conv_i, bn_i = self.mid(i)
+                z, st = bn(bn_i, conv(h, _kernel(conv_i)), self.training)
+                h = torch.relu(z)
+                stats.append(st)
+            return h, stats
+
+        every = self.remat_every if torch.is_grad_enabled() else 0
+        step = max(every or self.nmid, 1)
+        stats = []
+        for i0 in range(0, self.nmid, step):
+            k = min(step, self.nmid - i0)
+            if every:
+                h, st = checkpoint(group, h, i0, k, use_reentrant=False)
+            else:
+                h, st = group(h, i0, k)
+            stats += st
+        noise = conv(h, _kernel(self.conv_out)).float()
+        if self.training and stats:
+            update_running_stats([self.mid(i) for i in range(self.nmid)],
+                                 torch.stack([m for m, _ in stats]),
+                                 torch.stack([v for _, v in stats]))
         return x - noise if self.residual else noise
 
-    @staticmethod
-    def _bn_train(bn, z):
-        """Batch-stat BatchNorm of NCHW ``z``; updates ``bn``'s running
-        statistics in place with the biased batch variance."""
-        with torch.no_grad():
-            var, mean = torch.var_mean(z, dim=(0, 2, 3), unbiased=False)
-            keep = 1.0 - bn.momentum
-            bn.running_mean.mul_(keep).add_(mean, alpha=bn.momentum)
-            bn.running_var.mul_(keep).add_(var, alpha=bn.momentum)
-        return F.batch_norm(z, None, None, bn.weight, bn.bias, training=True,
-                            eps=bn.eps)
+
+def _kernel(conv):
+    """An ``nn.Conv2d``'s OIHW weight as the HWIO view the convolutions
+    take; autograd carries the gradient back through the view."""
+    return conv.weight.permute(2, 3, 1, 0)
+
+
+def _bn_f32(bn, z, training):
+    """BatchNorm of NHWC f32 ``z``: (y, None) with the running statistics,
+    (y, (mean, biased var)) with the batch's in training."""
+    zc = z.permute(0, 3, 1, 2)
+    if not training:
+        y = F.batch_norm(zc, bn.running_mean, bn.running_var, bn.weight,
+                         bn.bias, False, 0.0, bn.eps)
+        return y.permute(0, 2, 3, 1), None
+    with torch.no_grad():
+        var, mean = torch.var_mean(z, dim=(0, 1, 2), unbiased=False)
+    y = F.batch_norm(zc, None, None, bn.weight, bn.bias, True, 0.0, bn.eps)
+    return y.permute(0, 2, 3, 1), (mean, var)
+
+
+def _bn_bf16(bn, z, training):
+    """The JAX package's ``PackedBatchNorm`` on NHWC bf16 ``z``: statistics
+    in f32 (``E[z^2] - E[z]^2``), the per-channel affine cast to bf16 so the
+    chain stays bf16."""
+    if training:
+        zf = z.float()
+        m = zf.mean((0, 1, 2))
+        v = (zf * zf).mean((0, 1, 2)) - m * m
+        stats = (m.detach(), v.detach())
+    else:
+        m, v, stats = bn.running_mean, bn.running_var, None
+    inv = torch.rsqrt(v + bn.eps) * bn.weight
+    return z * inv.to(z.dtype) + (bn.bias - m * inv).to(z.dtype), stats
+
+
+@torch.no_grad()
+def update_running_stats(mids, means, vars_):
+    """``new = 0.9 * old + 0.1 * batch`` in place on the running statistics
+    of ``mids`` (the (conv, bn) pairs), from the batch statistics (L, 64)."""
+    for key, batch in (("running_mean", means), ("running_var", vars_)):
+        bufs = [getattr(bn, key) for _, bn in mids]
+        torch._foreach_mul_(bufs, BN_MOMENTUM)
+        torch._foreach_add_(bufs, list(batch.unbind(0)),
+                            alpha=1 - BN_MOMENTUM)
+
+
+def init_dncnn(seed=0, channels=1, num_layers=17, residual=False,
+               conv_impl="auto", remat_every=0):
+    """A new DnCNN and its JAX-layout variables: ``(model, variables)``.
+
+    Conv kernels are lecun-normal as flax initialises them (a normal
+    truncated at two standard deviations, scaled to variance 1 / fan_in),
+    drawn from a ``torch.Generator`` seeded with ``seed``: the values differ
+    from ``jax.random.PRNGKey(seed)``'s. BatchNorm starts at scale 1, bias 0,
+    mean 0, variance 1. ``conv_impl="auto"`` is ``"fused"``."""
+    model = DnCNN(channels=channels, num_layers=num_layers, residual=residual,
+                  conv_impl="fused" if conv_impl == "auto" else conv_impl,
+                  remat_every=remat_every)
+    gen = torch.Generator().manual_seed(seed)
+    # flax's truncated normal: unit variance after truncation at +-2
+    std_of_truncated = 0.87962566103423978
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.Conv2d):
+                std = math.sqrt(1.0 / (9 * m.in_channels)) / std_of_truncated
+                nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
+                                      generator=gen)
+    return model, to_jax_variables(model)
 
 
 def _hwio(w):
@@ -105,14 +234,16 @@ def load_jax_variables(model, variables):
     return model
 
 
-def from_jax_variables(variables, residual=False):
+def from_jax_variables(variables, residual=False, conv_impl="fused",
+                       remat_every=0):
     """The JAX variable tree -> a ``DnCNN`` (CPU, f32) holding its weights.
     Channels and depth are read from the tree."""
     params = variables["params"]
     k_in = np.asarray(params["conv_in"]["kernel"])
     nmid = sum(1 for k in params if k.startswith("conv_") and k[5:].isdigit())
     model = DnCNN(channels=k_in.shape[2], num_layers=nmid + 2,
-                  features=k_in.shape[3], residual=residual)
+                  features=k_in.shape[3], residual=residual,
+                  conv_impl=conv_impl, remat_every=remat_every)
     return load_jax_variables(model, variables)
 
 

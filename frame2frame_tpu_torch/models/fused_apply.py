@@ -23,8 +23,8 @@ launch per layer, its frames isolated by per-image SAME padding.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
+from ..ops._common import conv2d, conv2d_input, conv2d_weight
 from ..ops.fused_stack import (
     _affine_from_stats,
     fused_mid_stack,
@@ -32,9 +32,9 @@ from ..ops.fused_stack import (
     fwd_layer_eval,
     kernel_weights,
 )
+from .dncnn import update_running_stats
 
 EVAL_IMPLS = ("affine", "act-bf16", "act-f32")
-BN_MOMENTUM = 0.9  # flax convention: new = m * old + (1 - m) * batch
 
 
 def _eval_impl(eval_impl=None):
@@ -61,7 +61,7 @@ class _EndConvBf16(torch.autograd.Function):
     def forward(ctx, x, w):
         x16, w16 = x.to(torch.bfloat16), w.to(torch.bfloat16)
         ctx.save_for_backward(x16, w16)
-        return F.conv2d(x16, w16, padding=1)
+        return conv2d(x16, w16)
 
     @staticmethod
     def backward(ctx, g):
@@ -69,10 +69,9 @@ class _EndConvBf16(torch.autograd.Function):
         g16 = g.to(torch.bfloat16)
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = torch.nn.grad.conv2d_input(x16.shape, w16, g16, padding=1)
+            dx = conv2d_input(x16.shape, w16, g16)
         if ctx.needs_input_grad[1]:
-            dw = torch.nn.grad.conv2d_weight(x16.float(), w16.shape,
-                                             g16.float(), padding=1)
+            dw = conv2d_weight(x16.float(), w16.shape, g16.float())
         return dx, dw
 
 
@@ -85,7 +84,7 @@ def _make_end_conv(store_dtype):
         if store_dtype == torch.bfloat16:
             out = _EndConvBf16.apply(x, w)
         else:
-            out = F.conv2d(x.to(store_dtype), w.to(store_dtype), padding=1)
+            out = conv2d(x.to(store_dtype), w.to(store_dtype))
         return out.permute(0, 2, 3, 1).contiguous()
     return end_conv
 
@@ -135,17 +134,6 @@ def _eval_forward(model, x, store_dtype, eval_impl):
     return x - noise if model.residual else noise
 
 
-@torch.no_grad()
-def update_running_stats(mids, means, vars_):
-    """``new = 0.9 * old + 0.1 * batch`` in place on the running statistics
-    of ``mids`` (the (conv, bn) pairs), from the batch statistics (L, 64)."""
-    for key, batch in (("running_mean", means), ("running_var", vars_)):
-        bufs = [getattr(bn, key) for _, bn in mids]
-        torch._foreach_mul_(bufs, BN_MOMENTUM)
-        torch._foreach_add_(bufs, list(batch.unbind(0)),
-                            alpha=1 - BN_MOMENTUM)
-
-
 def fused_train_apply(model, x, store_dtype=torch.bfloat16,
                       mid_stack=fused_mid_stack):
     """Training-mode DnCNN forward with batch statistics.
@@ -188,8 +176,11 @@ def fused_eval_apply_batch(model, x, store_dtype=torch.bfloat16,
 
 
 def can_fuse(model):
-    """The fused kernels cover 64-feature DnCNNs with a mid stack."""
-    return model.features == 64 and model.num_layers >= 3
+    """The fused kernels cover 64-feature DnCNNs with a mid stack whose
+    ``conv_impl`` is ``"fused"``, as in the JAX package; any other
+    ``conv_impl`` takes the module route."""
+    return (model.conv_impl == "fused" and model.features == 64
+            and model.num_layers >= 3)
 
 
 def can_fuse_batch(model, x_shape, budget_bytes, eval_impl=None):

@@ -58,6 +58,7 @@ from ._common import (
     _partial_rows,
     _raise_on,
     _round_operand,
+    conv2d_weight,
 )
 
 # rows of ``vecs`` (4, 64) f32 of ``last_loss_bwd``: the last BatchNorm's
@@ -97,9 +98,9 @@ def last_loss_bwd_plain(noise, aux_c, aux_m, z, w, vecs, mma_bf16=False):
         -aux_m * torch.sign(aux_c - aux_m * noise), mma_bf16))
     g = _conv_f32(ne, _round_operand(w, mma_bf16).flip(0, 1).transpose(2, 3))
     a = _round_operand(torch.relu(y).to(dt), mma_bf16)
-    dw = torch.nn.grad.conv2d_weight(
-        a.permute(0, 3, 1, 2), (1, C, 3, 3), ne.permute(0, 3, 1, 2),
-        padding=1).permute(2, 3, 1, 0).contiguous()
+    dw = conv2d_weight(
+        a.permute(0, 3, 1, 2), (1, C, 3, 3),
+        ne.permute(0, 3, 1, 2)).permute(2, 3, 1, 0).contiguous()
     gp = g * (y > 0)
     zhat = zf * v[E_RSTD] + v[E_NMR]
     stats = torch.stack([gp.sum((0, 1, 2)), (gp * zhat).sum((0, 1, 2))])
@@ -109,9 +110,9 @@ def last_loss_bwd_plain(noise, aux_c, aux_m, z, w, vecs, mma_bf16=False):
 def first_dw_plain(da, z1, x, mma_bf16=False):
     """Plain version of ``first_dw``: dW_in (3, 3, 1, 64) f32."""
     gp = _round_operand(da.float() * (z1.float() > 0), mma_bf16)
-    return torch.nn.grad.conv2d_weight(
+    return conv2d_weight(
         _round_operand(x, mma_bf16)[None, None], (C, 1, 3, 3),
-        gp.permute(0, 3, 1, 2), padding=1).permute(2, 3, 1, 0).contiguous()
+        gp.permute(0, 3, 1, 2)).permute(2, 3, 1, 0).contiguous()
 
 
 def _check_act(name, z):

@@ -25,8 +25,9 @@ Counterparts of ``frame2frame_tpu/ops/fused_stack.py``:
   of ``ops/fused_ends.py``.
 
 ``KERNELS`` is the launch registry of all of the port's kernels, the end
-kernels and the flow's inner loop (``flow/tvl1_inner.py``) included
-(``launch_counts``, ``reset_launch_counts``).
+kernels, the flow's inner loop (``flow/tvl1_inner.py``) and the ``conv_impl``
+routes' convolution and weight gradient (``ops/conv3x3.py``,
+``ops/conv_dw.py``) included (``launch_counts``, ``reset_launch_counts``).
 
 Activations are NHWC ``(B, H, W, 64)``, contiguous, bf16 or f32. The TPU
 pair-packed flat layout is not carried over: a batch is the batch
@@ -67,9 +68,12 @@ from ._common import (
     _partial_rows,
     _raise_on,
     _round_operand,
+    conv2d_weight,
 )
 from ..flow.tvl1_inner import tvl1_inner_loop
 from .fused_ends import first_conv, first_dw, last_loss_bwd, last_loss_fwd
+from .conv3x3 import conv3x3_fwd
+from .conv_dw import dw_conv3x3
 
 EPS = 1e-5
 
@@ -214,9 +218,9 @@ def bwd_layer_plain(g, z_i, z_prev, w, vecs, first_layer=False,
     da = _conv_f32(dz, wr.flip(0, 1).transpose(2, 3))
     yp = zp * v[V_SP] + v[V_BP]
     a_prev = _round_operand(torch.relu(yp), mma_bf16)
-    dw = torch.nn.grad.conv2d_weight(
-        a_prev.permute(0, 3, 1, 2), (C, C, 3, 3), dz.permute(0, 3, 1, 2),
-        padding=1).permute(2, 3, 1, 0).contiguous()
+    dw = conv2d_weight(
+        a_prev.permute(0, 3, 1, 2), (C, C, 3, 3),
+        dz.permute(0, 3, 1, 2)).permute(2, 3, 1, 0).contiguous()
     if first_layer:
         stats = torch.zeros(2, C, dtype=torch.float32, device=g.device)
     else:
@@ -316,7 +320,7 @@ def bwd_layer(g, z_i, z_prev, w, vecs, first_layer=False):
 
 KERNELS = (fwd_layer, fwd_layer_train, fwd_layer_eval, bwd_layer,
            first_conv, last_loss_fwd, last_loss_bwd, first_dw,
-           tvl1_inner_loop)
+           tvl1_inner_loop, conv3x3_fwd, dw_conv3x3)
 
 
 def reset_launch_counts():

@@ -140,9 +140,10 @@ def prep_frame(cur, mask, target, store_dtype=torch.bfloat16):
 
 def eligible(model, x_shape, residual_model):
     """Whether the flat step covers fine-tuning ``model`` on frames of
-    ``x_shape`` (H, W, C): 64 features and a mid stack, one channel, the
-    standard residual convention (denoised = x - the conv stack's output),
-    all parameters on one device."""
+    ``x_shape`` (H, W, C): ``conv_impl="fused"`` (``can_fuse``, as the JAX
+    package asks), 64 features and a mid stack, one channel, the standard
+    residual convention (denoised = x - the conv stack's output), all
+    parameters on one device."""
     if not can_fuse(model):
         return False
     if x_shape[-1] != 1 or model.channels != 1:

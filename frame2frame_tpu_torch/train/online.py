@@ -2,21 +2,24 @@
 serving entry points of the online denoiser.
 
 Counterpart of ``frame2frame_tpu/train/online.py``: ``torch_adam``,
-``make_denoise``, ``make_online_step`` and ``OnlineDenoiser`` with
-``process_frame``, ``denoise_only`` and ``denoise_batch``.
+``make_denoise``, ``make_online_step``, ``AsyncFlowSolver``,
+``OnlineDenoiser`` with ``process_frame``, ``denoise_only`` and
+``denoise_batch``, and the streaming loop ``run_blind_denoising``.
 ``make_online_step`` takes the whole-iteration flat step
 (``train/flat_step.py``: every layer and the loss on kernels) where it is
 eligible, as the JAX package does on its accelerator, else the body that runs
-``fused_train_apply`` with the end convs and the loss in plain ops. The
-reference hot loop (blind_denoising.py:187-256) per
+``fused_train_apply`` with the end convs and the loss in plain ops, and for a
+model whose ``conv_impl`` is not ``"fused"`` the body on the model's own
+forward (``models/dncnn.py``; the ``"pallas"``, ``"hybrid"``, ``"bf16res"``
+and ``"packed_bf16"`` routes run the kernels of ``ops/conv3x3.py`` and
+``ops/conv_dw.py``). The reference hot loop (blind_denoising.py:187-256) per
 frame: warp the previous noisy frame by the flow and mask occlusions, once;
 ``iters`` Adam updates of the DnCNN in training mode on the summed masked L1
 loss; then the eval-mode denoise with the updated weights. PyTorch runs
 eagerly, so the JAX package's ``lax.scan`` is a Python loop here. The flow
-comes from ``AsyncFlowSolver`` (TV-L1, ``flow/tvl1.py``), which solves ahead
-of the fine-tune on a CUDA stream of its own. ``run_blind_denoising`` is not
-ported yet: the caller feeds ``AsyncFlowSolver`` and hands ``process_frame``
-its flows.
+comes from ``.flo`` files, from ``AsyncFlowSolver`` (TV-L1,
+``flow/tvl1.py``), which solves ahead of the fine-tune on a CUDA stream of
+its own, or from the batched solver in line (``run_blind_denoising``).
 """
 
 from __future__ import annotations
@@ -85,7 +88,9 @@ class torch_adam:
 
 def make_denoise(model, residual_model=False):
     """Build ``denoise(x, train=False, eval_impl=None) -> deno`` for one
-    (H, W, C) frame, through the fused kernels where the model allows it.
+    (H, W, C) frame, through the fused kernels where the model allows it
+    (``fused_apply.can_fuse``: ``conv_impl="fused"``, 64 features), else
+    through the model's forward, which routes by its ``conv_impl``.
 
     With ``train=True`` the forward runs in training mode (batch statistics,
     running statistics updated in place), builds the autograd graph and
@@ -128,11 +133,17 @@ def make_online_step(model, tx, iters=20, residual_model=False,
     statistics are updated in place; the optimizer state is returned.
 
     ``flat_step``: None takes the flat step (``flat_step.run_flat_scan``)
-    where ``flat_step.eligible``, else the per-iteration body on
-    ``fused_train_apply``; False always takes that body; True raises where
-    the flat step is not eligible. (The JAX package switches with the
-    environment variable ``F2F_FLATSTEP``; the port reads no implementation
-    from the environment.)"""
+    where ``flat_step.eligible``, else the per-iteration body (on
+    ``fused_train_apply``, or on the model's forward for a ``conv_impl``
+    other than ``"fused"``); False always takes that body; True raises where
+    the flat step is not eligible, at once for a ``conv_impl`` other than
+    ``"fused"``. (The JAX package switches with the environment variable
+    ``F2F_FLATSTEP``; the port reads no implementation from the
+    environment.)"""
+    if flat_step and model.conv_impl != "fused":
+        raise ValueError(
+            "flat_step=True, but the flat step runs only conv_impl='fused'; "
+            f"this model has conv_impl={model.conv_impl!r}")
     denoise = make_denoise(model, residual_model=residual_model)
     flat = JaxRavel(model)
 
@@ -143,9 +154,9 @@ def make_online_step(model, tx, iters=20, residual_model=False,
         if flat_step and not ok:
             raise ValueError(
                 "flat_step=True, but the flat step does not cover this model "
-                f"on frames of shape {tuple(x_shape)}: it needs 64 features, "
-                "a mid stack, one channel and residual_model == "
-                "model.residual")
+                f"on frames of shape {tuple(x_shape)}: it needs "
+                "conv_impl='fused', 64 features, a mid stack, one channel "
+                "and residual_model == model.residual")
         return ok
 
     def step(opt_state, cur, prev, flow, eval_impl=None):
@@ -362,3 +373,180 @@ class OnlineDenoiser:
     def variables(self):
         """The served weights as a JAX-layout tree of numpy arrays."""
         return to_jax_variables(self.model)
+
+
+FLOW_BACKENDS = ("auto", True, "cpu", False, "off", "tpu")
+
+
+def run_blind_denoising(
+    model,
+    variables,
+    input_tmpl,
+    flow_tmpl=None,
+    ref_tmpl=None,
+    output_tmpl=None,
+    output_psnr=None,
+    output_network=None,
+    first=1,
+    last=300,
+    iters=20,
+    lr=5e-5,
+    weight_decay=1e-5,
+    residual_model=False,
+    compute_flow=False,
+    flow_params=None,
+    progress=False,
+    flow_batch=8,
+    flow_backend="auto",
+    device=None,
+):
+    """Streaming blind denoising over a frame sequence, the reference CLI's
+    semantics (blind_denoising.py:125-259); counterpart of the JAX package's
+    ``run_blind_denoising`` with the same arguments and ``device`` (None:
+    the CUDA card, which raises where there is none).
+
+    Frames ``first`` .. ``last`` are read by a pool of two threads, up to
+    ``K`` frames ahead; frame i (from ``first + 1``) is fine-tuned against
+    frame i - 1 with flow i (cur -> prev coordinates) and denoised. Flows
+    come from ``flow_tmpl`` (``.flo``) unless ``compute_flow`` is set or no
+    template is given; then TV-L1 with ``DENOISING_PARAMS`` updated by
+    ``flow_params`` solves them on the engine's device: ``flow_backend``
+    "auto", True or "cpu" hands them to ``AsyncFlowSolver`` (``K`` = its
+    lookahead of 3), which solves ahead on a stream of its own; False,
+    "off" or "tpu" solves windows of ``flow_batch`` pairs in line with the
+    batched solver (``K = flow_batch``, the tail window padded with its last
+    pair). The names follow the JAX package, whose CPU worker and on-device
+    solver these are; its ``F2F_ASYNC_FLOW`` variable is not read.
+
+    Writes each denoised frame to ``output_tmpl`` (float TIFF unscaled,
+    other formats as 8-bit after clipping), the PSNR against ``ref_tmpl``
+    one line a frame to ``output_psnr``, and the engine's parameters,
+    optimizer state and running statistics to ``output_network`` (flax
+    msgpack, ``models.serialization.save_train_state``). Returns
+    ``{"psnr": [...], "loss": [(iters,) arrays], "frames": [...]}``."""
+    from ..flow.tvl1 import DENOISING_PARAMS, make_batched_tvl1, \
+        make_tvl1_solver
+    from ..io.flo import read_flo
+    from ..io.image import is_tiff, read_frame, write_gray
+    from ..models.dncnn import opt_state_to_jax
+    from ..models.serialization import save_train_state
+    from ..utils.metrics import psnr as psnr_fn
+
+    if flow_backend not in FLOW_BACKENDS:
+        raise ValueError(f"flow_backend must be one of {FLOW_BACKENDS}, got "
+                         f"{flow_backend!r}")
+    engine = OnlineDenoiser(model, variables, lr=lr,
+                            weight_decay=weight_decay, iters=iters,
+                            residual_model=residual_model, device=device)
+    dev = engine.device
+
+    compute = compute_flow or flow_tmpl is None
+    async_flow = solver = None
+    if compute:
+        H, W = read_frame(input_tmpl, first).shape[:2]
+        kw = dict(DENOISING_PARAMS)
+        kw.update(flow_params or {})
+        if flow_backend in ("auto", True, "cpu"):
+            async_flow = AsyncFlowSolver(W, H, kw, device=dev)
+            K = async_flow.lookahead
+        else:
+            K = flow_batch = max(1, min(flow_batch, last - first))
+            solver = (make_batched_tvl1 if flow_batch > 1
+                      else make_tvl1_solver)(W, H, device=dev, **kw)
+    else:
+        K = 1
+
+    def load(i):
+        """Frame i in [0, 1] as (H, W, 1) f32, and flow i when it is read
+        from a file (frames from first + 1 on have one,
+        blind_denoising.py:206)."""
+        arr = np.asarray(read_frame(input_tmpl, i), dtype=np.float32)
+        if arr.ndim == 2:
+            arr = arr[..., None]
+        # every frame is divided by 255, tiff included
+        # (blind_denoising.py:177-180,198-201)
+        arr = arr / 255.0
+        flow = None
+        if i > first and not compute:
+            flow = read_flo(flow_tmpl % i).astype(np.float32)
+        return arr, flow
+
+    pool = ThreadPoolExecutor(max_workers=2)
+    futures, frames = {}, {}
+    flow_cache = {}
+
+    def ensure(j):
+        if first <= j <= last and j not in futures and j not in frames:
+            futures[j] = pool.submit(load, j)
+
+    def frame(j):
+        """(tensor on the device, flow read from its file, host array)."""
+        if j not in frames:
+            arr, fl = futures.pop(j).result()
+            frames[j] = (torch.from_numpy(arr).to(dev), fl, arr)
+        return frames[j]
+
+    def flow_for(i):
+        if not compute:
+            return torch.from_numpy(frame(i)[1]).to(dev)
+        if async_flow is not None:
+            for j in range(i, min(i + async_flow.lookahead, last) + 1):
+                ensure(j)
+                async_flow.prefetch(j, frame(j)[2], frame(j - 1)[2])
+            return async_flow.get(i)
+        if i not in flow_cache:
+            idx = list(range(i, min(i + K - 1, last) + 1))
+            if K > 1:
+                pad = idx + [idx[-1]] * (K - len(idx))
+                cur = torch.stack([frame(j)[0][..., 0] for j in pad]) * 255.0
+                prev = torch.stack([frame(j - 1)[0][..., 0]
+                                    for j in pad]) * 255.0
+                flows = solver(cur, prev)
+                for k, j in enumerate(idx):
+                    flow_cache[j] = flows[k]
+            else:
+                c, p = frame(i)[0], frame(i - 1)[0]
+                flow_cache[i] = solver(c[..., 0] * 255.0, p[..., 0] * 255.0)
+        return flow_cache.pop(i)
+
+    results = {"psnr": [], "loss": [], "frames": []}
+    psnr_lines = []
+    try:
+        for j in range(first, min(first + K, last) + 1):
+            ensure(j)
+        for i in range(first + 1, last + 1):
+            for j in range(i + 1, min(i + K, last) + 1):
+                ensure(j)
+            cur, prev = frame(i)[0], frame(i - 1)[0]
+            flow = flow_for(i)
+            frames.pop(i - 1, None)  # consumed: i - 1 is never needed again
+            deno, losses = engine.process_frame(cur, prev, flow)
+            deno_np = deno.cpu().numpy()
+            results["loss"].append(losses.cpu().numpy())
+            results["frames"].append(i)
+            if output_tmpl:
+                out_path = output_tmpl % i
+                img = deno_np.squeeze()
+                write_gray(out_path, 255.0 * (img if is_tiff(out_path)
+                                              else np.clip(img, 0.0, 1.0)))
+            if ref_tmpl:
+                ref = np.asarray(read_frame(ref_tmpl, i),
+                                 dtype=np.float64) / 255.0
+                quant = psnr_fn(ref, deno_np)
+                results["psnr"].append(quant)
+                psnr_lines.append(str(quant) + "\n")
+                if progress:
+                    print(i, quant)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+        if async_flow is not None:
+            async_flow.close()
+
+    if output_psnr and psnr_lines:
+        with open(output_psnr, "w") as f:
+            f.writelines(psnr_lines)
+    if output_network:
+        v = engine.variables
+        save_train_state(output_network, v["params"],
+                         opt_state_to_jax(engine.opt_state), v["batch_stats"])
+    return results

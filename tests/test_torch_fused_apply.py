@@ -64,7 +64,8 @@ def test_from_jax_variables_matches_xla_model(residual, channels):
                                        conv_impl="xla", channels=channels)
     x = frames(2, H, W, seed=2, C=channels)
     want = np.asarray(model.apply(variables, jnp.asarray(x), train=False))
-    tm = from_jax_variables(variables, residual=residual).eval()
+    tm = from_jax_variables(variables, residual=residual,
+                            conv_impl="xla").eval()
     assert (tm.channels, tm.num_layers, tm.features) == (channels, 5, 64)
     with torch.no_grad():
         got = tm(torch.from_numpy(x)).numpy()

@@ -159,7 +159,8 @@ def test_module_training_mode_matches_jax_module(residual, channels):
 
     (_, (y_j, bs_j)), grads_j = jax.value_and_grad(loss_fn, has_aux=True)(
         jax.tree_util.tree_map(jnp.asarray, variables["params"]))
-    tm = from_jax_variables(variables, residual=residual).train()
+    tm = from_jax_variables(variables, residual=residual,
+                            conv_impl="xla").train()
     y = tm(torch.from_numpy(x))
     (y * torch.from_numpy(gref)).sum().backward()
     np.testing.assert_allclose(y.detach().numpy(), np.asarray(y_j),

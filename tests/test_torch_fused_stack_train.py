@@ -281,7 +281,8 @@ def test_kernels_table_and_counters():
     names = [k.__name__ for k in tfs.KERNELS]
     assert names == ["fwd_layer", "fwd_layer_train", "fwd_layer_eval",
                      "bwd_layer", "first_conv", "last_loss_fwd",
-                     "last_loss_bwd", "first_dw", "tvl1_inner_loop"]
+                     "last_loss_bwd", "first_dw", "tvl1_inner_loop",
+                     "conv3x3_fwd", "dw_conv3x3"]
     tfs.bwd_layer.launches = 3
     assert tfs.launch_counts()["bwd_layer"] == 3
     tfs.reset_launch_counts()

@@ -49,12 +49,13 @@ def test_port_sources_name_no_jax():
     pat = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|frame2frame_tpu)\b",
                      re.MULTILINE)
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) >= 32
+    assert len(files) >= 36
     for rel in ("ops/warp.py", "ops/fused_ends.py", "train/flat_step.py",
                 "ops/grad.py", "ops/gaussian.py", "ops/interp.py",
                 "ops/pyramid.py", "flow/tvl1_inner.py", "flow/tvl1.py",
                 "flow/api.py", "io/flo.py", "io/image.py", "config.py",
-                "cli/tvl1flow.py"):
+                "cli/tvl1flow.py", "ops/conv3x3.py", "ops/conv_dw.py",
+                "cli/blind_denoising.py", "utils/profiling.py"):
         assert PKG / rel in files, rel
     for f in files:
         assert not pat.search(f.read_text()), f
@@ -65,8 +66,8 @@ def test_cuda_sources_stand_alone():
     header only: no PyTorch header (a build takes seconds), no library of
     finished kernels."""
     sources = sorted((PKG / "csrc").glob("*.cu*"))
-    assert [f.name for f in sources] == ["conv3x3_c64.cuh", "fused_ends.cu",
-                                         "fused_stack.cu",
+    assert [f.name for f in sources] == ["conv3x3.cu", "conv3x3_c64.cuh",
+                                         "fused_ends.cu", "fused_stack.cu",
                                          "fused_stack_bwd.cu",
                                          "tvl1_inner.cu"]
     # cooperative_groups.h: the toolkit's header for the barrier across all
@@ -91,14 +92,16 @@ def test_kernel_wrappers_never_fall_back():
 
     trees = {}
     for rel in ("ops/fused_stack.py", "ops/fused_ends.py", "ops/_common.py",
-                "train/flat_step.py", "flow/tvl1_inner.py", "flow/tvl1.py"):
+                "train/flat_step.py", "flow/tvl1_inner.py", "flow/tvl1.py",
+                "ops/conv3x3.py", "ops/conv_dw.py"):
         trees[rel] = ast.parse((PKG / rel).read_text())
         assert not [n for n in ast.walk(trees[rel])
                     if isinstance(n, ast.Try)], rel
     names = [k.__name__ for k in fs.KERNELS]
-    assert len(names) == len(set(names)) == 9
+    assert len(names) == len(set(names)) == 11
     funcs = {n.name: n for rel in ("ops/fused_stack.py", "ops/fused_ends.py",
-                                   "flow/tvl1_inner.py")
+                                   "flow/tvl1_inner.py", "ops/conv3x3.py",
+                                   "ops/conv_dw.py")
              for n in trees[rel].body if isinstance(n, ast.FunctionDef)}
     for k in fs.KERNELS:
         name = k.__name__
@@ -129,7 +132,8 @@ def test_launch_counts_are_written_only_where_a_kernel_launches():
                                "fwd_layer_train", "bwd_layer"],
         "ops/fused_ends.py": ["first_conv", "last_loss_fwd", "last_loss_bwd",
                               "first_dw"],
-        "flow/tvl1_inner.py": ["tvl1_inner_loop"]}
+        "flow/tvl1_inner.py": ["tvl1_inner_loop"],
+        "ops/conv3x3.py": ["conv3x3_fwd"], "ops/conv_dw.py": ["dw_conv3x3"]}
     # a launch that a stream records into a CUDA graph runs nothing
     inner = (PKG / "flow" / "tvl1_inner.py").read_text()
     assert re.search(r"if not torch\.cuda\.is_current_stream_capturing\(\):"
@@ -176,6 +180,8 @@ def test_wrappers_refuse_a_device_without_a_kernel():
     does not reach the plain version."""
     from frame2frame_tpu_torch.ops import fused_ends as fe
     from frame2frame_tpu_torch.ops import fused_stack as fs
+    from frame2frame_tpu_torch.ops.conv3x3 import conv3x3_fwd
+    from frame2frame_tpu_torch.ops.conv_dw import dw_conv3x3
 
     x = torch.zeros(1, 4, 6, 64, device="meta")
     w = torch.zeros(3, 3, 64, 64, device="meta")
@@ -191,10 +197,96 @@ def test_wrappers_refuse_a_device_without_a_kernel():
                  lambda: fe.first_conv(img, w_in),
                  lambda: fe.last_loss_fwd(x, v, v, w_out, img, img),
                  lambda: fe.last_loss_bwd(img, img, img, x, w_out, vecs[:4]),
-                 lambda: fe.first_dw(x, x, img)):
+                 lambda: fe.first_dw(x, x, img),
+                 lambda: conv3x3_fwd(x, w),
+                 lambda: dw_conv3x3(x, x)):
         with pytest.raises(ValueError, match="no kernel for meta"):
             call()
     assert not any(fs.launch_counts().values())
+
+
+# the library's convolutions, by the names the port could reach them
+LIBRARY_CONVS = ("F.conv2d", "torch.conv2d", "functional.conv2d",
+                 "nn.grad.conv2d_weight", "nn.grad.conv2d_input",
+                 "aten.convolution", "F.conv_transpose2d", "cudnn_convolution")
+
+
+def _parents(tree):
+    return {child: node for node in ast.walk(tree)
+            for child in ast.iter_child_nodes(node)}
+
+
+def _library_conv_calls(tree):
+    return [n for n in ast.walk(tree) if isinstance(n, ast.Call)
+            and any(ast.unparse(n.func).endswith(name)
+                    for name in LIBRARY_CONVS)]
+
+
+def test_f32_convolutions_turn_tf32_off():
+    """PyTorch lets cuDNN run an f32 convolution in TF32 unless the caller
+    turned it off; the JAX package computes in f32. A CPU run cannot see
+    TF32, so the sources are held to the rule instead: the port calls the
+    library's convolutions in ``ops/_common.py`` only, each inside ``with
+    _cudnn_f32():``; the DnCNN module never calls its ``nn.Conv2d``
+    holders; ``chip_smoke.py`` times its library yardsticks inside the same
+    context (``no_tf32``) and sets no global TF32 flag."""
+    for f in sorted(PKG.rglob("*.py")):
+        tree = ast.parse(f.read_text())
+        calls = _library_conv_calls(tree)
+        if f.name != "_common.py" or f.parent.name != "ops":
+            assert not calls, (f.name, [ast.unparse(c) for c in calls])
+            continue
+        assert len(calls) == 3
+        parents = _parents(tree)
+        for call in calls:
+            node = call
+            while not isinstance(node, ast.With):
+                node = parents[node]
+            assert ast.unparse(node.items[0].context_expr) == "_cudnn_f32()"
+    dncnn = ast.parse((PKG / "models" / "dncnn.py").read_text())
+    assert not [n for n in ast.walk(dncnn) if isinstance(n, ast.Call)
+                and re.fullmatch(r"self\.conv_\w+", ast.unparse(n.func))]
+    smoke_src = (REPO / "chip_smoke.py").read_text()
+    assert "allow_tf32 =" not in smoke_src
+    smoke = ast.parse(smoke_src)
+    parents = _parents(smoke)
+    calls = _library_conv_calls(smoke)
+    assert len(calls) >= 4
+    for call in calls:
+        node, inside = call, False
+        while node in parents and not inside:
+            node = parents[node]
+            inside = (isinstance(node, ast.Call)
+                      and ast.unparse(node.func) == "no_tf32")
+        assert inside, ast.unparse(call)
+    from frame2frame_tpu_torch.ops import _common
+
+    before = torch.backends.cudnn.allow_tf32
+    with _common._cudnn_f32():
+        assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 == before
+
+
+def test_library_conv_backward_runs_without_tf32(monkeypatch):
+    """Autograd runs a backward after the forward's context has ended: the
+    port's ``conv2d`` computes its dX and dW inside the context too."""
+    from frame2frame_tpu_torch.ops import _common
+
+    seen = []
+    for name in ("conv2d_input", "conv2d_weight"):
+        real = getattr(torch.nn.grad, name)
+
+        def spy(*a, _real=real, **k):
+            seen.append(torch.backends.cudnn.allow_tf32)
+            return _real(*a, **k)
+
+        monkeypatch.setattr(torch.nn.grad, name, spy)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    x = torch.randn(1, 3, 6, 7, requires_grad=True)
+    w = torch.randn(4, 3, 3, 3, requires_grad=True)
+    _common.conv2d(x, w).square().sum().backward()
+    assert seen == [False, False]
+    assert torch.backends.cudnn.allow_tf32 is True
 
 
 def test_flow_entry_points_need_a_card_or_the_cpu_by_name():
