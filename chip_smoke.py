@@ -49,13 +49,16 @@ Phases, any failure exits non-zero:
    inner kernels that ran on the card are counted from the profiler's
    record, since a replay goes through no wrapper), the replayed solve
    against the eager one, and the time of a flow alone and of a frame with
-   its flow prefetched on a second stream;
+   its flow prefetched on a second stream; Farneback's flow
+   (``run_flows(ftype="cv2")``) of a clean 540p pair against the analytic
+   flow and against the same solve on the CPU, with no kernel launched;
 8. the ``conv_impl`` routes' kernels (``ops/conv3x3.py`` kernel A,
    ``ops/conv_dw.py`` kernel B): the port's library convolution against
    float64 under PyTorch's default TF32 flags (the script sets none); A and
    B against their plain versions at edge shapes (1->64, 64->64, 64->1,
    3->64, 8->8 at 13x21, B=2, more than 64 channels) and at 540x960 64->64
-   (B on f32 and bf16 operands), within 1e-5 of the largest plain value, B's
+   (B on f32 and bf16 operands) and B on bf16 at the thin layers 1->64 and
+   64->1, within 1e-5 of the largest plain value, B's
    bits on two runs; ``conv3x3_p2`` and ``conv3x3_dwflat`` once each; times
    beside the bound, the plain version and a library call (``F.conv2d``,
    ``aten.convolution_backward`` weight-only, with TF32 off);
@@ -187,6 +190,9 @@ FLOW_EPE_TOL, FLOW_MARGIN = 0.35, 10
 # frames fine-tuned on the analytic flow
 FLOW_PSNR_TOL = 0.5  # dB
 FLOW_LAUNCHES_540P = 25  # 5 solved scales x 5 warps
+# Farneback's flow on the card against the same solve on the CPU, mean px:
+# the same plain ops, rounded in another order by the two devices' kernels
+FB_DEVICE_ATOL = 1e-3
 INNER_KERNEL = "tvl1_inner_k"  # the inner loop's kernel in a profiler record
 # f32 operations a pixel and iteration of the inner loop (thresholding 13,
 # primal and error 15, dual 26)
@@ -544,9 +550,11 @@ def train_kernel_phase(torch, F, fs, cuda_time_ms):
         print(f"kernel {name} B=1 bfloat16: err {err[0]:.3e} (plain max "
               f"{err[1]:.3e}) ms {ms:.4f} plain {plain_ms:.4f} library "
               f"{library_ms:.4f} bound {bms:.4f} ({by})", flush=True)
-    # bwd_layer also writes dz once as bf16 and reads it and z_prev again
+    # as run, bwd_layer reads g, z_i and z_prev as (8+2) x (16+2) halo tiles
+    # of its 8 x 16 pixel tiles
+    halo = (8 + 2) * (16 + 2) / (8 * 16)
     rows["bwd_layer"][0]["bound_ms_as_run"] = bound_ms(
-        7 * act + small, 2 * flops)[0]
+        (3 * halo + 1) * act + small, 2 * flops)[0]
     torch.cuda.empty_cache()
     return rows
 
@@ -1623,6 +1631,42 @@ def flow_path_phase(torch, fs, psnr, variables, model, training):
     return launches, out
 
 
+def farneback_phase(torch, fs):
+    """Farneback flow (``run_flows(ftype="cv2")``, plain torch ops, no
+    kernel) on the card: a 540p pair of the moving texture, its median
+    end-point error against the analytic flow on clean frames, the same
+    solve on the CPU, no kernel launched, ms a pair."""
+    from frame2frame_tpu_torch.flow.api import run_flows
+
+    clean, _, flows = moving_frames(2)
+    done = count_run(torch, fs, {}, "farneback")
+    got = run_flows(clean, ftype="cv2").bflow[0, 1]
+    torch.cuda.synchronize()
+    done()
+    check(got.device.type == "cuda" and got.shape == (H, W, 2)
+          and bool(torch.isfinite(got).all()), "farneback: flow on the card")
+    f = got.cpu().numpy()
+    m = FLOW_MARGIN
+    epe = float(np.median(np.hypot(*(f - flows[1])[m:-m, m:-m]
+                                   .transpose(2, 0, 1))))
+    cpu = run_flows(clean, ftype="cv2", device="cpu").bflow[0, 1].numpy()
+    diff = np.abs(f - cpu)
+    secs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run_flows(clean, ftype="cv2")
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    out = {"median_epe_px": epe, "card_vs_cpu_mean_px": float(diff.mean()),
+           "card_vs_cpu_max_px": float(diff.max()),
+           "ms_a_pair": 1e3 * float(np.median(secs))}
+    print("farneback 540p (ftype='cv2'): " + json.dumps(out), flush=True)
+    check(epe <= FLOW_EPE_TOL, f"farneback: median end-point error {epe} px")
+    check(out["card_vs_cpu_mean_px"] <= FB_DEVICE_ATOL,
+          f"farneback: card and CPU differ by {diff.mean()} px on average")
+    return out
+
+
 def conv_inputs(torch, rng, B, h, wd, cin, cout):
     """x (B, h, wd, cin), HWIO weights scaled to unit output variance, and a
     cotangent (B, h, wd, cout), f32 on the card."""
@@ -1728,53 +1772,59 @@ def conv_kernel_phase(torch, F, cuda_time_ms):
     print("conv3x3_p2, conv3x3_dwflat: forward, dX and dW against the plain "
           "versions: ok", flush=True)
 
-    # 540x960, 64 -> 64, the shape of the mid layers
+    # 540x960: 64 -> 64, the shape of the mid layers, and B on bf16 at the
+    # thin layers 1 -> 64 and 64 -> 1 of the "packed_bf16" route
     x, w, g = conv_inputs(torch, rng, 1, H, W, FEAT, FEAT)
     w_lib = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-    flops = 2 * H * W * FEAT * FEAT * 9
     act = x.numel() * 4
     warm = lambda: c3.conv3x3_fwd(x, w)  # noqa: E731
     for _ in range(20):  # bring the clocks up before the first timing
         warm()
     rows = {"conv3x3_fwd": [], "dw_conv3x3": []}
-    cases = [("conv3x3_fwd", "float32", lambda: c3.conv3x3_fwd(x, w),
+    cases = [("conv3x3_fwd", "float32", FEAT, FEAT,
+              lambda: c3.conv3x3_fwd(x, w),
               lambda: c3.conv3x3_fwd_plain(x, w),
               no_tf32(lambda: F.conv2d(x.permute(0, 3, 1, 2), w_lib,
                                        padding=1)),
               2 * act + w.numel() * 4, F32_FLOP_PER_S)]
-    for dt, peak in ((torch.float32, F32_FLOP_PER_S),
-                     (torch.bfloat16, BF16_FLOP_PER_S)):
-        xd, gd = x.to(dt), g.to(dt)
+    for dt, cin, cout in ((torch.float32, FEAT, FEAT),
+                          (torch.bfloat16, FEAT, FEAT),
+                          (torch.bfloat16, 1, FEAT),
+                          (torch.bfloat16, FEAT, 1)):
+        xd, gd = x[..., :cin].to(dt), g[..., :cout].to(dt)
         xl, gl = xd.permute(0, 3, 1, 2), gd.permute(0, 3, 1, 2)
-        wl = w_lib.to(dt)
+        wl = w_lib[:cout, :cin].to(dt)
+        peak = F32_FLOP_PER_S if dt == torch.float32 else BF16_FLOP_PER_S
         cases.append((
-            "dw_conv3x3", str(dt).replace("torch.", ""),
+            "dw_conv3x3", str(dt).replace("torch.", ""), cin, cout,
             functools.partial(cdw.dw_conv3x3, xd, gd),
             functools.partial(cdw.dw_conv3x3_plain, xd, gd),
             no_tf32(functools.partial(
                 torch.ops.aten.convolution_backward, gl, xl, wl, None,
                 [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
                 [False, True, False])),
-            2 * xd.numel() * xd.element_size() + 9 * FEAT * FEAT * 4, peak))
-    for name, dtype, kern, plain, library, nbytes, peak in cases:
+            (xd.numel() + gd.numel()) * xd.element_size() + 9 * cin * cout * 4,
+            peak))
+    for name, dtype, cin, cout, kern, plain, library, nbytes, peak in cases:
+        tag = f"{name} 540p {cin}->{cout} {dtype}"
         got = kern()
         torch.cuda.synchronize()
-        err, scale = hold(f"{name} 540p {dtype}", got, plain())
+        err, scale = hold(tag, got, plain())
         if name == "dw_conv3x3":
             again = kern()
             torch.cuda.synchronize()
-            check(torch.equal(got, again), f"{name} 540p {dtype}: two runs "
-                  "differ")
+            check(torch.equal(got, again), f"{tag}: two runs differ")
         ms = cuda_time_ms(kern)
         plain_ms = cuda_time_ms(plain, iters=5)
         library_ms = cuda_time_ms(library)
-        bms, by = bound_ms(nbytes, flops, peak)
-        row = {"B": 1, "dtype": dtype, "max_abs_err": err,
-               "max_abs_plain": scale, "ms": ms, "plain_ms": plain_ms,
-               "library_ms": library_ms, "bound_ms": bms, "bound_by": by}
-        print(f"kernel {name} 540p {dtype}: err {err:.3e} (plain max "
-              f"{scale:.3e}) ms {ms:.4f} plain {plain_ms:.4f} library "
-              f"{library_ms:.4f} bound {bms:.4f} ({by})", flush=True)
+        bms, by = bound_ms(nbytes, 2 * H * W * cin * cout * 9, peak)
+        row = {"B": 1, "dtype": dtype, "cin": cin, "cout": cout,
+               "max_abs_err": err, "max_abs_plain": scale, "ms": ms,
+               "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": bms, "bound_by": by}
+        print(f"kernel {tag}: err {err:.3e} (plain max {scale:.3e}) ms "
+              f"{ms:.4f} plain {plain_ms:.4f} library {library_ms:.4f} "
+              f"bound {bms:.4f} ({by})", flush=True)
         rows[name].append(row)
     del x, g, cases
     torch.cuda.empty_cache()
@@ -2095,6 +2145,7 @@ def main():
             torch, fs, psnr, variables, model)
         flow_launches, flow = flow_path_phase(
             torch, fs, psnr, variables, model, training)
+        flow["farneback"] = farneback_phase(torch, fs)
         del model
         torch.cuda.empty_cache()
         t0 = time.perf_counter()

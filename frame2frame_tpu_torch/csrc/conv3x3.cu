@@ -26,11 +26,11 @@
 // Bound at 540p, 64 -> 64, f32 (one launch of either kernel): 2 * 540 * 960
 // * 64 * 64 * 9 = 38.2 GFLOP -> 0.57 ms at 67 TFLOP/s (f32 outside the tensor
 // cores), against 265 MB of inputs and output -> 0.079 ms at 3.35 TB/s: both
-// are bound by operations. Kernel B on bf16 operands moves half the bytes
-// and does the same f32 FMAs.
-//
-// Design, simple first (a later change may move kernel A to the tensor cores
-// in three bf16 passes, or kernel B to TF32 with a correction term):
+// are bound by operations. On bf16 operands the product of two values is
+// exact in f32, so kernel B takes them to the tensor cores (bf16 x bf16 ->
+// f32 MMA) and computes the same function up to the order of its f32 sums:
+// 38.2 GFLOP -> 0.039 ms at 989 TFLOP/s against 133 MB -> 0.040 ms, bound by
+// bytes.
 //
 // Kernel A: a block of 256 threads computes a tile of 8*NPG/2 x 16 pixels by
 // COT output channels (COT = 64, or 8 where Cout <= 8, so the 64 -> 1 layer
@@ -43,14 +43,45 @@
 // four channels of each thread's eight in separate halves, so that the
 // eight threads of a quarter warp read 128 contiguous bytes.
 //
-// Kernel B: a block is 9 taps x CG x OG threads (576 for 64 -> 64), one
+// Kernel B on f32 operands (dw_conv3x3_k): f32 FMAs, since TF32 would keep
+// 10 bits. A block is 9 taps x CG x OG threads (576 for 64 -> 64), one
 // thread the 8 x 8 block of dW of one tap, 8 input and 8 output channels, in
 // 64 f32 accumulators. Blocks walk 4 x 16 pixel tiles in a grid-stride loop;
-// a tile's x halo and g values are staged in shared memory as f32 (bf16
-// operands are widened, exactly), then each thread runs over the tile's 64
-// pixels: two float4 loads of x at the pixel shifted by its tap, two of g,
-// 64 FMAs. Thin layers (Cin or Cout of 1) leave 7 of a thread's 8 rows or
-// columns empty: their dW is small beside a 64 -> 64 layer's.
+// a tile's x halo and g values are staged in shared memory, then each thread
+// runs over the tile's 64 pixels: two float4 loads of x at the pixel shifted
+// by its tap, two of g, 64 FMAs.
+//
+// Kernel B on bf16 operands (dw_mma_k): the weight gradient as a matrix
+// product with the pixels as the MMA's k, as the mid layers' dW in
+// fused_stack_bwd.cu. A persistent block of 12 warps owns 64 input by 64
+// output channels of dW (blockIdx.y, blockIdx.z) and walks 8 x 16 pixel
+// tiles. A tile's x halo ((8+2) x (16+2) pixels) and its g (8 x 16 pixels)
+// are staged as bf16 in swizzled 128-byte rows, two tiles in flight: the
+// next tile's copies (cp.async, 16 bytes each, zeros outside the image) are
+// issued before the current tile's MMAs. dW of the block is 9 taps x 4
+// blocks of 16 input channels (the MMA's m) x 64 output channels (n); a
+// warp owns three of these 36 (tap, 16-channel) units in f32 accumulators
+// summed over all tiles of its block. One tile row of 16 pixels is one k16
+// step of mma.sync.m16n8k16: the B fragment is g of the row, read with
+// ldmatrix.trans; the A fragment x^T, read with ldmatrix.trans from the halo
+// row shifted by the unit's tap. Any channel counts: a block's channels past
+// Cin or Cout are never read into an MMA whose output is kept (a channel is
+// one row of A or one column of B, hence one row or column of dW), so they
+// are neither copied nor zeroed; only pixels outside the image must be zero.
+// Where Cin or Cout is not a multiple of 8 (the 1 -> 64 and 64 -> 1 layers)
+// that operand is copied value by value, the next tile's values carried in
+// registers across this tile's MMAs (loaded one tile ahead, a device-memory
+// wait a tile otherwise). Three shape classes (dw_mma_k<UPW, NT, GUARD>):
+// 64-channel blocks as above; Cin <= 16 (1 -> 64): nine warps of one unit,
+// the input channel stays the m dimension (one of 16 rows used: the taps as
+// m would take one MMA a row instead of nine, but the layer is bound by
+// reading g); Cout <= 8 (64 -> 1): one n8 tile (one of 8 columns used). The
+// thin classes hold few accumulators and run two blocks a multiprocessor;
+// both are bound by reading their 64-channel operand, 66 MB at 540p.
+//
+// Both forms of kernel B write a partial dW a block and finish_sums
+// (conv3x3_c64.cuh) adds the partials in block order, in double: no atomics,
+// the same bits on every run.
 
 #include "conv3x3_c64.cuh"  // finish(): per-block partials in block order
 
@@ -186,17 +217,11 @@ constexpr int B_HPIX = (B_TH + 2) * B_HW;     // halo pixels
 constexpr int B_CT = 64;                      // channels of a block, in and out
 constexpr int B_MAX_THREADS = 9 * (B_CT / 8) * (B_CT / 8);
 
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
 // x: (B, H, W, Cin), g: (B, H, W, Cout); partial: (gridDim.x, 9, Cin, Cout).
 // A block owns input channels 64 blockIdx.y .. and output channels
 // 64 blockIdx.z ..; cg_n and og_n are the groups of 8 of a full tile.
-template <typename T>
 __global__ void __launch_bounds__(B_MAX_THREADS, 1)
-dw_conv3x3_k(const T* __restrict__ x, const T* __restrict__ g,
+dw_conv3x3_k(const float* __restrict__ x, const float* __restrict__ g,
              float* __restrict__ partial, int B, int H, int W, int Cin,
              int Cout, int tiles_y, int tiles_x, int cg_n, int og_n) {
   __shared__ __align__(16) float xs[B_HPIX * B_CT];
@@ -230,7 +255,7 @@ dw_conv3x3_k(const T* __restrict__ x, const T* __restrict__ g,
       const int yy = y0 + hy - 1, xx = x0 + hx - 1;
       float v = 0.f;
       if (c < nc && yy >= 0 && yy < H && xx >= 0 && xx < W)
-        v = widen(x[(((size_t)bi * H + yy) * W + xx) * Cin + c0 + c]);
+        v = x[(((size_t)bi * H + yy) * W + xx) * Cin + c0 + c];
       xs[p * B_CT + wpos<B_CT>(c)] = v;
     }
     for (int e = tid; e < B_TH * B_TW * B_CT; e += blockDim.x) {
@@ -238,7 +263,7 @@ dw_conv3x3_k(const T* __restrict__ x, const T* __restrict__ g,
       const int yy = y0 + p / B_TW, xx = x0 + p % B_TW;
       float v = 0.f;
       if (c < no && yy < H && xx < W)
-        v = widen(g[(((size_t)bi * H + yy) * W + xx) * Cout + o0 + c]);
+        v = g[(((size_t)bi * H + yy) * W + xx) * Cout + o0 + c];
       gs[p * B_CT + wpos<B_CT>(c)] = v;
     }
     __syncthreads();
@@ -276,8 +301,7 @@ dw_conv3x3_k(const T* __restrict__ x, const T* __restrict__ g,
   }
 }
 
-template <typename T>
-int launch_dw(const void* x, const void* g, float* dw, float* partial,
+int launch_dw_f32(const void* x, const void* g, float* dw, float* partial,
               int max_blocks, int B, int H, int W, int Cin, int Cout,
               void* stream) {
   const int tiles_y = (H + B_TH - 1) / B_TH;
@@ -286,12 +310,297 @@ int launch_dw(const void* x, const void* g, float* dw, float* partial,
   const int blocks = (int)(ntiles < max_blocks ? ntiles : max_blocks);
   const int cg_n = (min(Cin, B_CT) + 7) / 8, og_n = (min(Cout, B_CT) + 7) / 8;
   const dim3 grid(blocks, (Cin + B_CT - 1) / B_CT, (Cout + B_CT - 1) / B_CT);
-  dw_conv3x3_k<T><<<grid, 9 * cg_n * og_n, 0, (cudaStream_t)stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g), partial, B, H, W,
+  dw_conv3x3_k<<<grid, 9 * cg_n * og_n, 0, (cudaStream_t)stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(g), partial, B, H, W,
       Cin, Cout, tiles_y, tiles_x, cg_n, og_n);
   const int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
   return f2f::finish(partial, blocks, 9 * Cin * Cout, dw, stream);
+}
+
+constexpr int M_WARPS = 12;
+constexpr int M_THREADS = M_WARPS * 32;
+constexpr int M_XH_BYTES = f2f::HALO_BYTES;                // x halo tile
+constexpr int M_G_BYTES = f2f::TH * f2f::TW * f2f::C * 2;  // g tile
+constexpr int M_STAGE_BYTES = M_XH_BYTES + M_G_BYTES;
+constexpr int M_SMEM_BYTES = 2 * M_STAGE_BYTES;
+// values of an operand copied one at a time (a channel count that is not a
+// multiple of 8) that a thread carries in registers to the next tile
+constexpr int M_CARRY = 2;
+
+struct DwArgs {
+  const __nv_bfloat16* x;
+  const __nv_bfloat16* g;
+  float* partial;
+  int B, H, W, Cin, Cout, tiles_y, tiles_x;
+};
+
+struct DwTile {
+  size_t row0;  // image index * H
+  int y0, x0;
+};
+
+__device__ __forceinline__ DwTile dw_tile(const DwArgs& a, long tile) {
+  const long r = tile / a.tiles_x;
+  return {(size_t)(r / a.tiles_y) * a.H, (int)(r % a.tiles_y) * f2f::TH,
+          (int)(tile - r * a.tiles_x) * f2f::TW};
+}
+
+// Pixel p of a tile of x (HALO = 1: the (8+2) x (16+2) halo) or of g
+// (HALO = 0: the 8 x 16 pixels): its index in the batch and whether it lies
+// in the image.
+template <int HALO>
+__device__ __forceinline__ bool dw_pixel(const DwArgs& a, const DwTile& t,
+                                         int p, size_t& pix) {
+  constexpr int COLS = f2f::TW + 2 * HALO;
+  const int hy = p / COLS, hx = p - hy * COLS;
+  const int y = t.y0 + hy - HALO, x = t.x0 + hx - HALO;
+  pix = (t.row0 + y) * a.W + x;
+  return f2f::row_in_image(y, a.H) && x >= 0 && x < a.W;
+}
+
+// The tile's nch chunks of 8 channels a pixel, from channel c0 of rows of
+// cs channels, into shared memory at dst: cp.async, zeros outside the image.
+template <int HALO>
+__device__ __forceinline__ void dw_copy(const DwArgs& a, const DwTile& t,
+                                        uint32_t dst,
+                                        const __nv_bfloat16* src, int cs,
+                                        int c0, int nch) {
+  constexpr int NPIX = (f2f::TH + 2 * HALO) * (f2f::TW + 2 * HALO);
+  for (int e = threadIdx.x; e < NPIX * nch; e += M_THREADS) {
+    const int p = nch == 8 ? e >> 3 : e / nch, ch = e - p * nch;
+    size_t pix;
+    const bool in = dw_pixel<HALO>(a, t, p, pix);
+    f2f::cp_async16(dst + f2f::swz(p, 8 * ch),
+                    in ? src + pix * cs + c0 + 8 * ch : src, in);
+  }
+}
+
+// The same for n channels one value at a time: the first M_CARRY values of
+// a thread into registers (load), then into shared memory (store), so that
+// the loads of the next tile overlap this tile's MMAs; the rest of a wide
+// operand (an edge shape) loaded and stored in the store step.
+template <int HALO>
+__device__ __forceinline__ void dw_load(const DwArgs& a, const DwTile& t,
+                                        __nv_bfloat16 (&v)[M_CARRY],
+                                        const __nv_bfloat16* src, int cs,
+                                        int c0, int n) {
+  constexpr int NPIX = (f2f::TH + 2 * HALO) * (f2f::TW + 2 * HALO);
+#pragma unroll
+  for (int k = 0; k < M_CARRY; ++k) {
+    const int e = threadIdx.x + k * M_THREADS;
+    v[k] = __float2bfloat16(0.f);
+    if (e < NPIX * n) {
+      const int p = e / n, c = e - p * n;
+      size_t pix;
+      if (dw_pixel<HALO>(a, t, p, pix)) v[k] = src[pix * cs + c0 + c];
+    }
+  }
+}
+
+template <int HALO>
+__device__ __forceinline__ void dw_store(const DwArgs& a, const DwTile& t,
+                                         const __nv_bfloat16 (&v)[M_CARRY],
+                                         unsigned char* dst,
+                                         const __nv_bfloat16* src, int cs,
+                                         int c0, int n) {
+  constexpr int NPIX = (f2f::TH + 2 * HALO) * (f2f::TW + 2 * HALO);
+#pragma unroll
+  for (int k = 0; k < M_CARRY; ++k) {
+    const int e = threadIdx.x + k * M_THREADS;
+    if (e < NPIX * n) {
+      const int p = e / n, c = e - p * n;
+      *reinterpret_cast<__nv_bfloat16*>(dst + f2f::swz(p, c)) = v[k];
+    }
+  }
+  for (int e = threadIdx.x + M_CARRY * M_THREADS; e < NPIX * n;
+       e += M_THREADS) {
+    const int p = e / n, c = e - p * n;
+    size_t pix;
+    __nv_bfloat16 u = __float2bfloat16(0.f);
+    if (dw_pixel<HALO>(a, t, p, pix)) u = src[pix * cs + c0 + c];
+    *reinterpret_cast<__nv_bfloat16*>(dst + f2f::swz(p, c)) = u;
+  }
+}
+
+// x: (B, H, W, Cin), g: (B, H, W, Cout) bf16; partial: (gridDim.x, 9, Cin,
+// Cout) f32. The block owns input channels 64 blockIdx.y .. and output
+// channels 64 blockIdx.z ... Shape classes: UPW (tap, 16 input channels)
+// units a warp, 3 (12 warps x 3 = 36 units of 64 input channels) or 1 (nine
+// warps, one tap each, 16 input channels at most); NT n8 tiles of output
+// channels, 8 or 1 (8 output channels at most); GUARD: the block's channels
+// may be fewer than its units and n tiles cover (without it, UPW = 3 and NT
+// = 8 take blocks of exactly 64 x 64 channels).
+template <int UPW, int NT, bool GUARD>
+__global__ void __launch_bounds__(M_THREADS, UPW * NT > 8 ? 1 : 2)
+dw_mma_k(const DwArgs a) {
+  using namespace f2f;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int c0 = blockIdx.y * C, o0 = blockIdx.z * C;
+  const int nc = min(C, a.Cin - c0), no = min(C, a.Cout - o0);
+  const int mt = (nc + 15) >> 4;  // m16 tiles of input channels in use
+  const int nt = (no + 7) >> 3;   // n8 tiles of output channels in use
+  const bool xvec = a.Cin % 8 == 0, gvec = a.Cout % 8 == 0;
+
+  float acc[UPW][NT][4];
+#pragma unroll
+  for (int i = 0; i < UPW; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+
+  // ldmatrix.trans lane roles, as in the mid layers' dW (fused_stack_bwd.cu):
+  // A = x^T from rows of pixels (k), B = g from rows of pixels (k)
+  const int a_k = (lane & 7) + (lane >> 4) * 8;
+  const int a_mh = (lane >> 3) & 1;
+  const int b_row = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int b_nt = lane >> 4;
+  // unit i of this warp: tap and first input channel
+  auto unit_tap = [&](int i) { return UPW == 3 ? (UPW * warp + i) >> 2 : warp; };
+  auto unit_c = [&](int i) { return UPW == 3 ? 16 * ((UPW * warp + i) & 3) : 0; };
+  constexpr bool EXACT = UPW == 3 && NT == 8 && !GUARD;
+  int a_pix[UPW];
+  bool used[UPW];
+#pragma unroll
+  for (int i = 0; i < UPW; ++i) {
+    const int tap = unit_tap(i);
+    a_pix[i] = (tap / 3) * HW + (tap % 3) + a_k;
+    used[i] = EXACT || (tap < 9 && unit_c(i) < 16 * mt);
+  }
+
+  const long ntiles = (long)a.B * a.tiles_y * a.tiles_x;
+  long tile = blockIdx.x;
+  __nv_bfloat16 xv[M_CARRY], gv[M_CARRY];
+  if (tile < ntiles) {
+    const DwTile t = dw_tile(a, tile);
+    const uint32_t s0 = (uint32_t)__cvta_generic_to_shared(smem);
+    if (xvec) dw_copy<1>(a, t, s0, a.x, a.Cin, c0, nc >> 3);
+    else {
+      dw_load<1>(a, t, xv, a.x, a.Cin, c0, nc);
+      dw_store<1>(a, t, xv, smem, a.x, a.Cin, c0, nc);
+    }
+    if (gvec) dw_copy<0>(a, t, s0 + M_XH_BYTES, a.g, a.Cout, o0, no >> 3);
+    else {
+      dw_load<0>(a, t, gv, a.g, a.Cout, o0, no);
+      dw_store<0>(a, t, gv, smem + M_XH_BYTES, a.g, a.Cout, o0, no);
+    }
+  }
+  cp_async_commit();
+  for (int s = 0; tile < ntiles; tile += gridDim.x, s ^= 1) {
+    unsigned char* xs = smem + s * M_STAGE_BYTES;
+    unsigned char* xn = smem + (s ^ 1) * M_STAGE_BYTES;
+    // the next tile's copies and loads go out before this tile's MMAs
+    const long next = tile + gridDim.x;
+    const DwTile tn = dw_tile(a, next < ntiles ? next : tile);
+    if (next < ntiles) {
+      const uint32_t sn = (uint32_t)__cvta_generic_to_shared(xn);
+      if (xvec) dw_copy<1>(a, tn, sn, a.x, a.Cin, c0, nc >> 3);
+      else dw_load<1>(a, tn, xv, a.x, a.Cin, c0, nc);
+      if (gvec) dw_copy<0>(a, tn, sn + M_XH_BYTES, a.g, a.Cout, o0, no >> 3);
+      else dw_load<0>(a, tn, gv, a.g, a.Cout, o0, no);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile's copies have landed
+    __syncthreads();
+
+    const uint32_t xs_s = (uint32_t)__cvta_generic_to_shared(xs);
+    const uint32_t gs_s = xs_s + M_XH_BYTES;
+#pragma unroll
+    for (int row = 0; row < TH; ++row) {
+      uint32_t bf[NT < 2 ? 2 : NT][2];
+      if constexpr (NT == 1) {
+        ldsm_x2_trans(gs_s + swz(row * TW + b_row, 0), bf[0][0], bf[0][1]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < NT; j += 2)
+          if (!GUARD || j < nt)
+            ldsm_x4_trans(gs_s + swz(row * TW + b_row, 8 * (j + b_nt)),
+                          bf[j][0], bf[j][1], bf[j + 1][0], bf[j + 1][1]);
+      }
+      // every unit's A fragment before the row's MMAs: one wait a row
+      uint32_t af[UPW][4];
+#pragma unroll
+      for (int i = 0; i < UPW; ++i)
+        if (EXACT || used[i])
+          ldsm_x4_trans(xs_s + swz(row * HW + a_pix[i], unit_c(i) + 8 * a_mh),
+                        af[i][0], af[i][1], af[i][2], af[i][3]);
+#pragma unroll
+      for (int i = 0; i < UPW; ++i) {
+        if (!EXACT && !used[i]) continue;
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          if (!GUARD || j < nt)
+            mma_bf16(acc[i][j], af[i][0], af[i][1], af[i][2], af[i][3],
+                     bf[j][0], bf[j][1]);
+      }
+    }
+    if (next < ntiles) {
+      if (!xvec) dw_store<1>(a, tn, xv, xn, a.x, a.Cin, c0, nc);
+      if (!gvec) dw_store<0>(a, tn, gv, xn + M_XH_BYTES, a.g, a.Cout, o0, no);
+    }
+    __syncthreads();  // every warp is done with this stage before it refills
+  }
+
+  const int gi = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < UPW; ++i) {
+    if (!used[i]) continue;
+    float* dst =
+        a.partial + ((size_t)blockIdx.x * 9 + unit_tap(i)) * a.Cin * a.Cout;
+    const int cm = unit_c(i);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int c = cm + gi + 8 * (q >> 1);
+        const int o = 8 * j + 2 * t + (q & 1);
+        if (c < nc && o < no)
+          dst[(size_t)(c0 + c) * a.Cout + o0 + o] = acc[i][j][q];
+      }
+  }
+}
+
+template <int UPW, int NT, bool GUARD>
+int launch_mma(DwArgs a, float* dw, int max_blocks, void* stream) {
+  using namespace f2f;
+  static Resident resident;  // one for each instantiation of the kernel
+  auto kern = dw_mma_k<UPW, NT, GUARD>;
+  int grid = 0;
+  int rc = persistent_grid(kern, M_THREADS, M_SMEM_BYTES,
+                           (long)a.B * a.tiles_y * a.tiles_x, max_blocks,
+                           &resident, &grid);
+  if (rc != 0) return rc;
+  const dim3 blocks(grid, (a.Cin + C - 1) / C, (a.Cout + C - 1) / C);
+  kern<<<blocks, M_THREADS, M_SMEM_BYTES, (cudaStream_t)stream>>>(a);
+  if ((rc = (int)cudaGetLastError()) != 0) return rc;
+  return finish(a.partial, grid, 9 * a.Cin * a.Cout, dw, stream);
+}
+
+int launch_dw_mma(const void* x, const void* g, float* dw, float* partial,
+                  int max_blocks, int B, int H, int W, int Cin, int Cout,
+                  void* stream) {
+  using namespace f2f;
+  const DwArgs a = {static_cast<const __nv_bfloat16*>(x),
+                    static_cast<const __nv_bfloat16*>(g),
+                    partial,
+                    B,
+                    H,
+                    W,
+                    Cin,
+                    Cout,
+                    (H + TH - 1) / TH,
+                    (W + TW - 1) / TW};
+  if (Cout <= 8) return launch_mma<3, 1, false>(a, dw, max_blocks, stream);
+  if (Cin <= 16)
+    return Cout % C == 0 ? launch_mma<1, 8, false>(a, dw, max_blocks, stream)
+                         : launch_mma<1, 8, true>(a, dw, max_blocks, stream);
+  return Cin % C == 0 && Cout % C == 0
+             ? launch_mma<3, 8, false>(a, dw, max_blocks, stream)
+             : launch_mma<3, 8, true>(a, dw, max_blocks, stream);
 }
 
 }  // namespace
@@ -318,10 +627,10 @@ int f2f_dw_conv3x3(const void* x, const void* g, int is_f32, float* dw,
   if (max_blocks <= 0 || B <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0
       || (Cin + B_CT - 1) / B_CT > 65535 || (Cout + B_CT - 1) / B_CT > 65535)
     return (int)cudaErrorInvalidValue;
-  return is_f32 ? launch_dw<float>(x, g, dw, partial, max_blocks, B, H, W,
-                                   Cin, Cout, stream)
-                : launch_dw<__nv_bfloat16>(x, g, dw, partial, max_blocks, B,
-                                           H, W, Cin, Cout, stream);
+  return is_f32 ? launch_dw_f32(x, g, dw, partial, max_blocks, B, H, W,
+                                 Cin, Cout, stream)
+                : launch_dw_mma(x, g, dw, partial, max_blocks, B, H, W, Cin,
+                                Cout, stream);
 }
 
 const char* f2f_error_string(int code) {

@@ -1,27 +1,19 @@
 // The 3x3 SAME convolution body over NHWC activations with 64 channels in and
-// out (128 bytes a pixel in bf16), shared by the forward kernels
-// (fused_stack.cu) and the backward kernels (fused_stack_bwd.cu) of the
-// DnCNN 64->64 mid layers, for Hopper (sm_90a).
+// out (128 bytes a pixel in bf16) of the forward kernels of the DnCNN 64->64
+// mid layers (fused_stack.cu), for Hopper (sm_90a), and the helpers that the
+// port's other tensor-core kernels share: the swizzled 128-byte-row layout,
+// ldmatrix, mma.sync, cp.async, the rounded affine, finish_sums and the
+// persistent grid (fused_stack_bwd.cu, conv3x3.cu).
 //
-// One template, conv3x3_c64<T, PRO, EPI, WT>, with a prologue applied to the
+// One template, conv3x3_c64<T, PRO, EPI>, with a prologue applied to the
 // operand while it is staged and an epilogue applied to the f32 accumulators:
 //
 //   PRO_NONE    operand = in
 //   PRO_AFFINE  operand = relu(s * in + b)
-//   PRO_DZ      operand = dz = A * (g * [s_i * z_i + b_i > 0]) + B * z_i + C,
-//               the BN-training backward of one layer from its cotangent g
-//               (in) and its stored conv output z_i (in2); dz is also written
-//               once, as bf16, at the image pixels for the dW kernel
 //   EPI_NONE    out = acc
 //   EPI_AFFINE  out = relu(s * acc + b)
 //   EPI_STATS   out = acc, and per channel sum(acc), sum(acc^2) over the
 //               image pixels, from the accumulator before out is rounded
-//   EPI_BNBWD   out = acc, and per channel sum(gp), sum(gp * zhat_prev) with
-//               gp = acc * [s_p * z_prev + b_p > 0],
-//               zhat_prev = rstd_p * z_prev - mean_p * rstd_p
-//   WT          the weights act flipped and transposed (the dX convolution):
-//               tap (dy, dx) multiplies w[2 - dy, 2 - dx]^T, read from the
-//               same HWIO array
 //
 // Zero padding applies to the operand AFTER the prologue: pixels outside the
 // image are written as zeros into the halo tile. Frames of a batch are
@@ -29,8 +21,8 @@
 //
 // Every affine whose sign decides a ReLU or a ReLU mask is computed as a
 // rounded product plus a rounded sum (affine() below, no fused multiply-add),
-// in the forward prologue, the backward masks and the plain PyTorch versions
-// alike, so all of them agree on every pixel.
+// in the forward prologue, the backward kernel's masks and the plain PyTorch
+// versions alike, so all of them agree on every pixel.
 //
 // Per-channel sums are reduced without atomics: a thread keeps its sums over
 // all tiles of its persistent block, the block reduces them by warp shuffles
@@ -82,20 +74,8 @@ static_assert(NTHREADS % 8 == 0, "a thread keeps one channel chunk");
 static_assert(TH % NWARPS == 0, "warps split the tile rows evenly");
 static_assert(NTHREADS == 2 * C, "one thread writes one per-channel sum");
 
-enum Prologue { PRO_NONE = 0, PRO_AFFINE = 1, PRO_DZ = 2 };
-enum Epilogue { EPI_NONE = 0, EPI_AFFINE = 1, EPI_STATS = 2, EPI_BNBWD = 3 };
-
-// Rows of the (8, 64) f32 vectors of one backward layer.
-enum BwdVec {
-  V_A = 0,       // gamma_i * rstd_i: the ReLU-mask scale and dz's factor of g
-  V_BI = 1,      // the shift of the same affine
-  V_B = 2,       // -A * rstd_i * dgamma_i / M
-  V_C = 3,       // A * (mean_i * rstd_i * dgamma_i / M - dbeta_i / M)
-  V_SP = 4,      // scale of the previous layer's affine
-  V_BP = 5,      // its shift
-  V_RSTDP = 6,   // rstd_prev
-  V_NMRP = 7,    // -mean_prev * rstd_prev
-};
+enum Prologue { PRO_NONE = 0, PRO_AFFINE = 1 };
+enum Epilogue { EPI_NONE = 0, EPI_AFFINE = 1, EPI_STATS = 2 };
 
 // Byte offset of channel ch of row `row` in a swizzled 128-byte-row tile.
 __device__ __forceinline__ int swz(int row, int ch) {
@@ -191,6 +171,14 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t& r0,
       : "r"(addr));
 }
 
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t addr, uint32_t& r0,
+                                              uint32_t& r1) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r0), "=r"(r1)
+      : "r"(addr));
+}
+
 __device__ __forceinline__ void mma_bf16(float c[4], uint32_t a0, uint32_t a1,
                                          uint32_t a2, uint32_t a3, uint32_t b0,
                                          uint32_t b1) {
@@ -201,32 +189,52 @@ __device__ __forceinline__ void mma_bf16(float c[4], uint32_t a0, uint32_t a1,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// in, in2, out, zprev: (B, H, W, 64) contiguous, T = bf16 or float.
+// 16 bytes from global to shared memory without passing through registers;
+// valid = false writes 16 zero bytes and reads nothing (src must still be a
+// mapped address). Completion is waited for by group: cp_async_commit()
+// closes the group of the copies issued so far, cp_async_wait<N>() waits
+// until at most N groups are in flight.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Whether image row y is a row of the image: the one test of row validity
+// of the backward kernels, which a row window of a split frame can replace.
+__device__ __forceinline__ bool row_in_image(int y, int H) {
+  return y >= 0 && y < H;
+}
+
+// in, out: (B, H, W, 64) contiguous, T = bf16 or float.
 // w: (3, 3, 64, 64) HWIO bf16 = (9 * 64, 64) rows tap*64 + i (tap = 3*dy+dx)
 //    of the 64 output channels.
-// s, b: 64 floats each (PRO_AFFINE or EPI_AFFINE); vec: (8, 64), see BwdVec
-// (PRO_DZ, EPI_BNBWD); dz: (B, H, W, 64) bf16 (PRO_DZ);
-// partial: (blocks, 2, 64) f32 (EPI_STATS, EPI_BNBWD).
+// s, b: 64 floats each (PRO_AFFINE or EPI_AFFINE);
+// partial: (blocks, 2, 64) f32 (EPI_STATS).
 template <typename T>
 struct ConvArgs {
   const T* in;
-  const T* in2;
   const __nv_bfloat16* w;
   const float* s;
   const float* b;
-  const float* vec;
   T* out;
-  __nv_bfloat16* dz;
-  const T* zprev;
   float* partial;
   int B, H, W, tiles_y, tiles_x;
 };
 
-template <typename T, int PRO, int EPI, bool WT>
+template <typename T, int PRO, int EPI>
 __global__ void __launch_bounds__(NTHREADS, 2)
 conv3x3_c64(const ConvArgs<T> a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ float vs[8 * C];           // EPI_BNBWD: the layer's vectors
   __shared__ float red[NWARPS][2][C];   // per-warp sums of the block
   unsigned char* ws = smem;
   unsigned char* hs = smem + W_BYTES;
@@ -235,34 +243,21 @@ conv3x3_c64(const ConvArgs<T> a) {
   const int g = (tid & 31) >> 2;  // MMA group: fragment row / column
   const int t = tid & 3;          // thread in group: fragment k pair
   const int H = a.H, W = a.W;
-  constexpr bool SUMS = EPI == EPI_STATS || EPI == EPI_BNBWD;
+  constexpr bool SUMS = EPI == EPI_STATS;
 
   for (int idx = tid; idx < 9 * C * 8; idx += NTHREADS) {
     uint4 u = reinterpret_cast<const uint4*>(a.w)[idx];
     *reinterpret_cast<uint4*>(ws + swz(idx >> 3, (idx & 7) * 8)) = u;
   }
-  if constexpr (EPI == EPI_BNBWD) {
-    for (int idx = tid; idx < 8 * C; idx += NTHREADS) vs[idx] = a.vec[idx];
-  }
 
   // NTHREADS % 8 == 0: a thread stages the same channel chunk of every pixel
   const int chunk = tid & 7;
-  float ps[8], pb[8];    // PRO_AFFINE: s, b;  PRO_DZ: A, b_i
-  float pB[8], pC[8];    // PRO_DZ: B, C
+  float ps[8], pb[8];    // PRO_AFFINE: s, b
   if constexpr (PRO == PRO_AFFINE) {
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       ps[i] = a.s[chunk * 8 + i];
       pb[i] = a.b[chunk * 8 + i];
-    }
-  }
-  if constexpr (PRO == PRO_DZ) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      ps[i] = a.vec[V_A * C + chunk * 8 + i];
-      pb[i] = a.vec[V_BI * C + chunk * 8 + i];
-      pB[i] = a.vec[V_B * C + chunk * 8 + i];
-      pC[i] = a.vec[V_C * C + chunk * 8 + i];
     }
   }
   float es[8][2], eb[8][2];
@@ -297,13 +292,11 @@ conv3x3_c64(const ConvArgs<T> a) {
     __syncthreads();  // the previous tile's MMAs are done with the halo
     // All of a batch's global loads are started before any is used, so a
     // thread waits for device memory once a batch, not once a chunk.
-    constexpr int NIN = PRO == PRO_DZ ? 2 : 1;
-    constexpr int NB = (sizeof(T) == 2 ? 12 : 6) / NIN;  // 48 registers of loads
+    constexpr int NB = sizeof(T) == 2 ? 12 : 6;  // 48 registers of loads
     static_assert(CHUNKS_PER_THREAD % NB == 0, "whole batches");
 #pragma unroll
     for (int i0 = 0; i0 < CHUNKS_PER_THREAD; i0 += NB) {
       Chunk<T> raw[NB];
-      Chunk<T> raw2[PRO == PRO_DZ ? NB : 1];
       bool inside[NB];
 #pragma unroll
       for (int i = 0; i < NB; ++i) {
@@ -311,11 +304,8 @@ conv3x3_c64(const ConvArgs<T> a) {
         const int hy = p / HW, hx = p - hy * HW;
         const int y = y0 + hy - 1, x = x0 + hx - 1;
         inside[i] = p < HH * HW && y >= 0 && y < H && x >= 0 && x < W;
-        if (inside[i]) {
-          const size_t off = (((size_t)bi * H + y) * W + x) * C + chunk * 8;
-          ldg(raw[i], a.in + off);
-          if constexpr (PRO == PRO_DZ) ldg(raw2[i], a.in2 + off);
-        }
+        if (inside[i])
+          ldg(raw[i], a.in + (((size_t)bi * H + y) * W + x) * C + chunk * 8);
       }
 #pragma unroll
       for (int i = 0; i < NB; ++i) {
@@ -334,24 +324,7 @@ conv3x3_c64(const ConvArgs<T> a) {
               for (int k = 0; k < 8; ++k)
                 v[k] = fmaxf(affine(ps[k], v[k], pb[k]), 0.f);
             }
-            if constexpr (PRO == PRO_DZ) {
-              float z[8];
-              unpack(raw2[i], z);
-#pragma unroll
-              for (int k = 0; k < 8; ++k) {
-                const float gt = affine(ps[k], z[k], pb[k]) > 0.f ? v[k] : 0.f;
-                v[k] = fmaf(ps[k], gt, fmaf(pB[k], z[k], pC[k]));
-              }
-            }
             u = pack8(v);
-          }
-          if constexpr (PRO == PRO_DZ) {
-            const int hy = p / HW, hx = p - hy * HW;
-            if (hy >= 1 && hy <= TH && hx >= 1 && hx <= TW) {
-              const int y = y0 + hy - 1, x = x0 + hx - 1;
-              *reinterpret_cast<uint4*>(
-                  a.dz + (((size_t)bi * H + y) * W + x) * C + chunk * 8) = u;
-            }
           }
         }
         *reinterpret_cast<uint4*>(hs + swz(p, chunk * 8)) = u;
@@ -368,35 +341,25 @@ conv3x3_c64(const ConvArgs<T> a) {
         for (int q = 0; q < 4; ++q) acc[m][j][q] = 0.f;
 
     // ldmatrix lane roles: A rows (pixels) and k halves. B from HWIO
-    // weights, rows = input channels: the forward's k runs down the rows
-    // (.trans: b_row is k, b_nt the n-tile of a pair); the transposed
-    // conv's k runs along a row (plain: the row is n, the chunk a k half).
+    // weights, rows = input channels: k runs down the rows (.trans: b_row
+    // is k, b_nt the n-tile of a pair)
     const int lane = tid & 31;
     const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8;
     const int a_kh = lane >> 4;
     const int b_row = (lane & 7) + ((lane >> 3) & 1) * 8;
     const int b_nt = lane >> 4;
-    const int bt_row = (lane & 7) + (lane >> 4) * 8;
-    const int bt_kh = (lane >> 3) & 1;
     const uint32_t ws_s = (uint32_t)__cvta_generic_to_shared(ws);
     const uint32_t hs_s = (uint32_t)__cvta_generic_to_shared(hs);
 #pragma unroll
     for (int tap = 0; tap < 9; ++tap) {
       const int dy = tap / 3, dx = tap - 3 * (tap / 3);
-      const int wtap = WT ? 8 - tap : tap;
 #pragma unroll
       for (int k0 = 0; k0 < C; k0 += 16) {
         uint32_t bf[8][2];
 #pragma unroll
-        for (int j = 0; j < 8; j += 2) {
-          if constexpr (WT) {
-            ldsm_x4(ws_s + swz(wtap * C + 8 * j + bt_row, k0 + 8 * bt_kh),
-                    bf[j][0], bf[j][1], bf[j + 1][0], bf[j + 1][1]);
-          } else {
-            ldsm_x4_trans(ws_s + swz(wtap * C + k0 + b_row, 8 * (j + b_nt)),
-                          bf[j][0], bf[j][1], bf[j + 1][0], bf[j + 1][1]);
-          }
-        }
+        for (int j = 0; j < 8; j += 2)
+          ldsm_x4_trans(ws_s + swz(tap * C + k0 + b_row, 8 * (j + b_nt)),
+                        bf[j][0], bf[j][1], bf[j + 1][0], bf[j + 1][1]);
 #pragma unroll
         for (int m = 0; m < RPW; ++m) {
           const int p = (warp * RPW + m + dy) * HW + dx + a_row;
@@ -432,26 +395,6 @@ conv3x3_c64(const ConvArgs<T> a) {
             st0[j][1] += v1;
             st1[j][0] = fmaf(v0, v0, st1[j][0]);
             st1[j][1] = fmaf(v1, v1, st1[j][1]);
-          }
-          if constexpr (EPI == EPI_BNBWD) {
-            const float2 zp = load2(a.zprev + off + 8 * j);
-            const int ch = 8 * j + 2 * t;
-            const float g0 =
-                affine(vs[V_SP * C + ch], zp.x, vs[V_BP * C + ch]) > 0.f ? v0
-                                                                         : 0.f;
-            const float g1 =
-                affine(vs[V_SP * C + ch + 1], zp.y, vs[V_BP * C + ch + 1]) > 0.f
-                    ? v1
-                    : 0.f;
-            st0[j][0] += g0;
-            st0[j][1] += g1;
-            st1[j][0] = fmaf(
-                g0, fmaf(vs[V_RSTDP * C + ch], zp.x, vs[V_NMRP * C + ch]),
-                st1[j][0]);
-            st1[j][1] = fmaf(g1,
-                             fmaf(vs[V_RSTDP * C + ch + 1], zp.y,
-                                  vs[V_NMRP * C + ch + 1]),
-                             st1[j][1]);
           }
         }
       }
@@ -541,10 +484,10 @@ int persistent_grid(K kern, int threads, int smem_bytes, long ntiles,
 
 // Launches the conv body over (B, H, W); *grid gets the number of blocks,
 // which is the number of rows written to a.partial.
-template <typename T, int PRO, int EPI, bool WT>
+template <typename T, int PRO, int EPI>
 int launch_conv(ConvArgs<T> a, int max_blocks, int* grid, void* stream) {
   static Resident resident;  // one for each instantiation of the kernel
-  auto kern = conv3x3_c64<T, PRO, EPI, WT>;
+  auto kern = conv3x3_c64<T, PRO, EPI>;
   a.tiles_y = (a.H + TH - 1) / TH;
   a.tiles_x = (a.W + TW - 1) / TW;
   const long ntiles = (long)a.B * a.tiles_y * a.tiles_x;

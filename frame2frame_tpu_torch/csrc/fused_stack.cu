@@ -52,7 +52,7 @@ int forward(const void* in, const void* w, const float* s, const float* b,
   a.H = H;
   a.W = W;
   int grid = 0;
-  int rc = launch_conv<T, PRO, EPI, false>(a, max_blocks, &grid, stream);
+  int rc = launch_conv<T, PRO, EPI>(a, max_blocks, &grid, stream);
   if (rc != 0 || EPI != EPI_STATS) return rc;
   return finish(partial, grid, 2 * C, stats, stream);
 }

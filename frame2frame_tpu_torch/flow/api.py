@@ -21,6 +21,8 @@ import torch
 from ..config import Config
 from ..ops.pyramid import num_scales
 from ..utils.device import resolve_device
+from .farneback import DEFAULT_PARAMS as FB_DEFAULT_PARAMS
+from .farneback import fb_params, make_batched_farneback
 from .tvl1 import DENOISING_PARAMS, make_batched_tvl1
 
 
@@ -49,9 +51,10 @@ def run_flows(vid, use_flow=True, ftype="tvl1", device=None, **params):
     TV-L1 solver (``flow/tvl1.py``) with the denoising parameters by default;
     ``"svnlb"`` is an explicit alias of it (the reference's svnlb flow is the
     VNLB package's bundled TV-L1 variant); ``"cv2"`` is Farneback's
-    polynomial-expansion flow in the JAX package, which the port does not
-    have yet: it raises ``NotImplementedError`` and never solves TV-L1 under
-    that name.
+    polynomial-expansion flow (``flow/farneback.py``,
+    ``make_batched_farneback`` with ``DEFAULT_PARAMS`` updated by the
+    Farneback keys of ``params``), a different estimator, as in the JAX
+    package.
     """
     device = resolve_device(device)
     g = _to_gray_bt(vid, device)
@@ -62,20 +65,21 @@ def run_flows(vid, use_flow=True, ftype="tvl1", device=None, **params):
     if ftype not in ("tvl1", "svnlb", "cv2"):
         raise ValueError(f"unknown flow type [{ftype}]")
     if ftype == "cv2":
-        raise NotImplementedError(
-            "ftype='cv2' is Farneback's flow (frame2frame_tpu/flow/"
-            "farneback.py), which is still to port; use 'tvl1' or 'svnlb'")
-
-    kw = dict(DENOISING_PARAMS)
-    kw.update(params)
-    # small frames: the denoising parameters' fscale=2 (stop two levels above
-    # the finest, tvl1flow.sh:12-18) can exceed the clamped pyramid depth
-    # (coarsest >= 16 px, main.c:159-163), which in the C code solves no level
-    # at all (zero flow). Clamp so that at least the coarsest level solves.
-    ns = num_scales(W, H, kw.get("nscales", 100), kw.get("zfactor", 0.5))
-    if kw.get("fscale", 0) >= ns:
-        kw["fscale"] = max(ns - 1, 0)
-    solver = make_batched_tvl1(W, H, device=device, **kw)
+        kw = dict(FB_DEFAULT_PARAMS)
+        kw.update(fb_params(params))
+        solver = make_batched_farneback(W, H, device=device, **kw)
+    else:
+        kw = dict(DENOISING_PARAMS)
+        kw.update(params)
+        # small frames: the denoising parameters' fscale=2 (stop two levels
+        # above the finest, tvl1flow.sh:12-18) can exceed the clamped pyramid
+        # depth (coarsest >= 16 px, main.c:159-163), which in the C code
+        # solves no level at all (zero flow). Clamp so that at least the
+        # coarsest level solves.
+        ns = num_scales(W, H, kw.get("nscales", 100), kw.get("zfactor", 0.5))
+        if kw.get("fscale", 0) >= ns:
+            kw["fscale"] = max(ns - 1, 0)
+        solver = make_batched_tvl1(W, H, device=device, **kw)
 
     # forward: pairs (t, t+1) for t in 0..T-2; backward: (t, t-1) for t in
     # 1..T-1; both directions solve in ONE batched call

@@ -236,7 +236,7 @@ def _lib_bwd():
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.f2f_bwd_layer.restype = ci
     lib.f2f_bwd_layer.argtypes = ([vp, vp, vp, ci, vp, vp, ci]
-                                  + [vp] * 6 + [ci] * 4 + [vp])
+                                  + [vp] * 3 + [ci] * 4 + [vp])
     _bind_error_string(lib)
     return lib
 
@@ -279,8 +279,9 @@ def bwd_layer(g, z_i, z_prev, w, vecs, first_layer=False):
 
     Returns (da_prev in g's dtype, dW (3, 3, 64, 64) f32, stats_prev (2, 64)
     f32 = sum gp and sum gp * zhat_prev with gp = da_prev * [a_prev > 0],
-    zeros when ``first_layer``). One call counts as one launch; it runs the
-    dz + dX kernel, the dW kernel and their finishing sums."""
+    zeros when ``first_layer``). One call counts as one launch: one kernel
+    computes all three, and one finishing sum adds its blocks' partial sums
+    of stats_prev and dW."""
     name = "bwd_layer"
     _checked(name, g, w, vecs[0], vecs[1])
     for x in (z_i, z_prev):
@@ -300,22 +301,20 @@ def bwd_layer(g, z_i, z_prev, w, vecs, first_layer=False):
     dev = g.device
     rows = _partial_rows(dev.index)
     da = torch.empty_like(g)
-    dz = torch.empty(g.shape, dtype=torch.bfloat16, device=dev)
-    dw = torch.empty(3, 3, C, C, dtype=torch.float32, device=dev)
-    stats = (torch.zeros if first_layer else torch.empty)(
-        2, C, dtype=torch.float32, device=dev)
-    partial_stats = torch.empty(rows, 2, C, dtype=torch.float32, device=dev)
-    partial_dw = torch.empty(rows, 9, C, C, dtype=torch.float32, device=dev)
+    # stats_prev (2, 64) and dW (3, 3, 64, 64) side by side, as the kernel's
+    # partial rows hold them
+    out = torch.empty(2 * C + 9 * C * C, dtype=torch.float32, device=dev)
+    partial = torch.empty(rows, out.numel(), dtype=torch.float32, device=dev)
     B, H, W, _ = g.shape
     rc = lib.f2f_bwd_layer(
         g.data_ptr(), z_i.data_ptr(), z_prev.data_ptr(),
         int(g.dtype == torch.float32), wk.data_ptr(), vecs.data_ptr(),
-        int(bool(first_layer)), da.data_ptr(), dz.data_ptr(), dw.data_ptr(),
-        stats.data_ptr(), partial_stats.data_ptr(), partial_dw.data_ptr(),
-        rows, B, H, W, torch.cuda.current_stream().cuda_stream)
+        int(bool(first_layer)), da.data_ptr(), out.data_ptr(),
+        partial.data_ptr(), rows, B, H, W,
+        torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, name, rc)
     bwd_layer.launches += 1
-    return da, dw, stats
+    return da, out[2 * C:].view(3, 3, C, C), out[:2 * C].view(2, C)
 
 
 KERNELS = (fwd_layer, fwd_layer_train, fwd_layer_eval, bwd_layer,

@@ -1,0 +1,156 @@
+"""A/B timing of the port's mid-layer and weight-gradient kernels against
+another tree's (the parent commit's), on one card in one process.
+
+    git archive <parent> | tar -x -C build/parent
+    python3 scripts/torch_kernel_ab.py --parent build/parent
+
+Builds ``frame2frame_tpu_torch/csrc/{fused_stack,fused_stack_bwd,conv3x3}.cu``
+of both trees with the port's nvcc flags into ``build/ab/``, then times each
+kernel at 540x960 on bf16 operands with CUDA events in turns: parent,
+change, change, parent (the forward layers, ``bwd_layer`` and kernel B at
+64->64, 1->64 and 64->1). ``bwd_layer``'s C interface changed from two
+kernels with a dz scratch to one kernel; the script calls each tree's own.
+Prints the card line and one JSON object. Needs a CUDA card and nvcc.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO))
+SOURCES = ("fused_stack", "fused_stack_bwd", "conv3x3")
+H, W, C = 540, 960, 64
+
+
+def build(tree, tag, name):
+    from frame2frame_tpu_torch.ops import _build
+
+    out = REPO / "build" / "ab" / tag
+    out.mkdir(parents=True, exist_ok=True)
+    so = out / f"lib{name}.so"
+    src = Path(tree) / "frame2frame_tpu_torch" / "csrc" / f"{name}.cu"
+    res = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
+                          str(so), str(src)], capture_output=True, text=True)
+    if res.returncode:
+        raise RuntimeError(f"nvcc failed on {tag}/{name}.cu:\n{res.stderr}")
+    return (tag, name), ctypes.CDLL(str(so))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", required=True,
+                    help="root of the other tree (a git archive of it)")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    from frame2frame_tpu_torch.utils.timer import cuda_time_ms
+
+    if not torch.cuda.is_available():
+        sys.exit("torch_kernel_ab: no CUDA card")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    trees = {"parent": args.parent, "change": str(REPO)}
+    with ThreadPoolExecutor(len(trees) * len(SOURCES)) as ex:
+        libs = dict(ex.map(lambda a: build(*a), [
+            (tree, tag, name) for tag, tree in trees.items()
+            for name in SOURCES]))
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(*shape, device=dev, generator=gen)
+
+    rows = 2 * torch.cuda.get_device_properties(0).multi_processor_count
+    stream = torch.cuda.current_stream().cuda_stream
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    z = randn(1, H, W, C).bfloat16()
+    zi, g = randn(1, H, W, C).bfloat16(), randn(1, H, W, C, scale=0.1).bfloat16()
+    w = randn(3, 3, C, C, scale=0.05).bfloat16()
+    s, b = 1 + randn(C, scale=0.2), randn(C, scale=0.1)
+    vec = torch.stack([1 + randn(C, scale=0.2), randn(C, scale=0.1),
+                       randn(C, scale=1e-3), randn(C, scale=1e-3),
+                       1 + randn(C, scale=0.2), randn(C, scale=0.1),
+                       0.5 + torch.rand(C, device=dev, generator=gen),
+                       randn(C, scale=0.1)])
+    out = torch.empty_like(z)
+    da, dz = torch.empty_like(z), torch.empty_like(z)
+    stats = torch.empty(2 * C + 9 * C * C, device=dev)
+    part = torch.empty(rows, 2 * C + 9 * C * C, device=dev)
+    part_stats = torch.empty(rows, 2 * C, device=dev)
+
+    def calls(tag):
+        """{case: function} of one tree's kernels."""
+        fs = libs[tag, "fused_stack"]
+        for fn in (fs.f2f_fwd_layer, fs.f2f_fwd_layer_eval):
+            fn.restype, fn.argtypes = ci, [vp, ci, vp, vp, vp, vp, ci, ci, ci,
+                                           vp]
+        fs.f2f_fwd_layer_train.restype = ci
+        fs.f2f_fwd_layer_train.argtypes = [vp, ci] + [vp] * 6 + [ci] * 4 + [vp]
+        bwd = libs[tag, "fused_stack_bwd"].f2f_bwd_layer
+        two = tag == "parent" and "dz" in (
+            Path(trees[tag]) / "frame2frame_tpu_torch" / "csrc" /
+            "fused_stack_bwd.cu").read_text().split("int f2f_bwd_layer(")[1][:400]
+        bwd.restype = ci
+        bwd.argtypes = ([vp, vp, vp, ci, vp, vp, ci] + [vp] * (6 if two else 3)
+                        + [ci] * 4 + [vp])
+        dwk = libs[tag, "conv3x3"].f2f_dw_conv3x3
+        dwk.restype = ci
+        dwk.argtypes = [vp, vp, ci, vp, vp] + [ci] * 6 + [vp]
+        p = lambda t: t.data_ptr()  # noqa: E731
+        args = (p(z), 0, p(w), p(s), p(b), p(out), 1, H, W, stream)
+        out_calls = {
+            "fwd_layer": lambda: fs.f2f_fwd_layer(*args),
+            "fwd_layer_eval": lambda: fs.f2f_fwd_layer_eval(*args),
+            "fwd_layer_train": lambda: fs.f2f_fwd_layer_train(
+                p(z), 0, p(w), p(s), p(b), p(out), p(stats), p(part_stats),
+                rows, 1, H, W, stream),
+            "bwd_layer": (lambda: bwd(
+                p(g), p(zi), p(z), 0, p(w), p(vec), 0, p(da), p(dz),
+                p(stats[2 * C:]), p(stats), p(part_stats), p(part), rows, 1,
+                H, W, stream)) if two else (lambda: bwd(
+                    p(g), p(zi), p(z), 0, p(w), p(vec), 0, p(da), p(stats),
+                    p(part), rows, 1, H, W, stream))}
+        for cin, cout in ((C, C), (1, C), (C, 1)):
+            x = z[..., :cin].contiguous()
+            gg = g[..., :cout].contiguous()
+            dw = torch.empty(9 * cin * cout, device=dev)
+            pdw = torch.empty(rows, 9 * cin * cout, device=dev)
+            out_calls[f"dw_conv3x3 {cin}->{cout}"] = (
+                lambda x=x, gg=gg, dw=dw, pdw=pdw, cin=cin, cout=cout: dwk(
+                    p(x), p(gg), 0, p(dw), p(pdw), rows, 1, H, W, cin, cout,
+                    stream))
+        return out_calls
+
+    by_tag = {tag: calls(tag) for tag in trees}
+
+    def timed(fn):
+        def run():
+            rc = fn()
+            if rc:
+                raise RuntimeError(f"launch failed: cudaError {rc}")
+        return cuda_time_ms(run, iters=50)
+
+    result = {"card": card, "hw": [H, W], "ms": {}}
+    for case in by_tag["change"]:
+        order = ("parent", "change", "change", "parent")
+        times = [timed(by_tag[tag][case]) for tag in order]
+        result["ms"][case] = {"parent": [times[0], times[3]],
+                              "change": [times[1], times[2]]}
+        print(f"{case}: parent {times[0]:.4f} {times[3]:.4f} change "
+              f"{times[1]:.4f} {times[2]:.4f} ms", flush=True)
+    print(card)
+    print(json.dumps(result))
+
+
+if __name__ == "__main__":
+    main()

@@ -53,9 +53,10 @@ def test_port_sources_name_no_jax():
     for rel in ("ops/warp.py", "ops/fused_ends.py", "train/flat_step.py",
                 "ops/grad.py", "ops/gaussian.py", "ops/interp.py",
                 "ops/pyramid.py", "flow/tvl1_inner.py", "flow/tvl1.py",
-                "flow/api.py", "io/flo.py", "io/image.py", "config.py",
-                "cli/tvl1flow.py", "ops/conv3x3.py", "ops/conv_dw.py",
-                "cli/blind_denoising.py", "utils/profiling.py"):
+                "flow/farneback.py", "flow/api.py", "io/flo.py",
+                "io/image.py", "config.py", "cli/tvl1flow.py",
+                "ops/conv3x3.py", "ops/conv_dw.py", "cli/blind_denoising.py",
+                "utils/profiling.py"):
         assert PKG / rel in files, rel
     for f in files:
         assert not pat.search(f.read_text()), f
@@ -311,6 +312,39 @@ def test_flow_entry_points_need_a_card_or_the_cpu_by_name():
             call()
     assert callable(make_tvl1_solver(30, 24, device="cpu"))
     AsyncFlowSolver(30, 24, DENOISING_PARAMS, device="cpu").close()
+
+
+def test_farneback_imports_no_jax_and_needs_a_card_or_the_cpu_by_name():
+    """``flow/farneback.py`` imported alone leaves jax, flax and the JAX
+    package out of ``sys.modules``; its solvers, and ``run_flows`` with
+    ``ftype="cv2"``, raise without a card unless ``device="cpu"`` is
+    passed."""
+    code = """
+import sys
+import frame2frame_tpu_torch.flow.farneback
+bad = [k for k in sys.modules if k.split(".")[0] in ("jax", "flax", "frame2frame_tpu")]
+assert not bad, bad
+"""
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    from frame2frame_tpu_torch.flow.api import run_flows
+    from frame2frame_tpu_torch.flow.farneback import (make_batched_farneback,
+                                                      make_farneback_solver)
+
+    vid = np.zeros((2, 24, 30), np.float32)
+    for call in (lambda: make_farneback_solver(30, 24),
+                 lambda: make_batched_farneback(30, 24),
+                 lambda: run_flows(vid, ftype="cv2", levels=1)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    flow = make_farneback_solver(30, 24, levels=1, device="cpu")(vid[0],
+                                                                 vid[1])
+    assert flow.shape == (24, 30, 2) and flow.device.type == "cpu"
+    assert run_flows(vid, ftype="cv2", levels=1, device="cpu").fflow.shape \
+        == (1, 2, 24, 30, 2)
 
 
 def test_flow_solver_has_no_implementation_switch():

@@ -31,6 +31,10 @@ from frame2frame_tpu.io import flo as jflo  # noqa: E402
 from frame2frame_tpu_torch.cli import tvl1flow as tcli  # noqa: E402
 from frame2frame_tpu_torch.config import Config  # noqa: E402
 from frame2frame_tpu_torch.flow import api as tapi  # noqa: E402
+from frame2frame_tpu_torch.flow.farneback import (  # noqa: E402
+    DEFAULT_PARAMS as FB_DEFAULT_PARAMS,
+    make_batched_farneback,
+)
 from frame2frame_tpu_torch.flow import tvl1 as ttvl1  # noqa: E402
 from frame2frame_tpu_torch.io import flo as tflo  # noqa: E402
 from frame2frame_tpu_torch.io import image as timage  # noqa: E402
@@ -183,8 +187,13 @@ def test_run_flows_options():
     assert off.fflow.shape == (1, 3, 24, 30, 2) and not off.fflow.any()
     one = tapi.run_flows(vid[:1], device="cpu")
     assert one.bflow.shape == (1, 1, 24, 30, 2) and not one.bflow.any()
-    with pytest.raises(NotImplementedError, match="Farneback"):
-        tapi.run_flows(vid, ftype="cv2", device="cpu")
+    # "cv2" is Farneback's flow, a different estimator from TV-L1
+    cv = tapi.run_flows(vid, ftype="cv2", device="cpu", levels=1)
+    fb = make_batched_farneback(30, 24, device="cpu",
+                                **dict(FB_DEFAULT_PARAMS, levels=1))
+    g = torch.as_tensor(vid, dtype=torch.float32)
+    assert torch.equal(cv.fflow[0, :-1], fb(g[:-1], g[1:]))
+    assert not torch.equal(cv.fflow, got.fflow)
     with pytest.raises(ValueError, match="unknown flow type"):
         tapi.run_flows(vid, ftype="raft", device="cpu")
 
