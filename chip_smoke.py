@@ -7,12 +7,15 @@ NVIDIA GPU.
 Phases, any failure exits non-zero:
 1. card name and power limit (nvidia-smi), torch and CUDA versions;
 2. build of the CUDA kernels from ``frame2frame_tpu_torch/csrc``, one
-   ``nvcc`` process a source, all at once;
+   ``nvcc`` process a source, all at once, with ptxas's registers, spills
+   and any serialised wgmma;
 3. each kernel against its plain PyTorch version at small shapes that leave
-   partial tiles, then at 540x960x64 (bf16 storage; B=4 and f32 too for the
-   eval kernels), with CUDA-event times of the kernel, the plain version
-   and a library yardstick that the port never calls (``F.conv2d``, and
-   ``aten.convolution_backward`` for ``bwd_layer``, on bf16 channels-last);
+   partial tiles and a ragged 541x963, then at 540x960x64 (the three
+   forward forms at B=1 and B=4 on both chains, their sums bit-equal on two
+   runs; the host's cost of a forward call), with CUDA-event times of the
+   kernel, the plain version and a library yardstick that the port never
+   calls (``F.conv2d``, and ``aten.convolution_backward`` for
+   ``bwd_layer``, on bf16 channels-last);
    the four end kernels of the flat step (``first_conv``, ``last_loss_fwd``,
    ``last_loss_bwd``, ``first_dw``) the same way, one frame, with their
    reductions run twice for equal bits;
@@ -327,12 +330,17 @@ def bound_ms(nbytes, flops, flop_per_s=BF16_FLOP_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# frames that leave partial 8 x 16 tiles in both directions, frames narrower
+# than one tile, and a ragged full-size frame whose blocks take many tiles
+# through the forward kernels' ring of stages
+EDGE_SHAPES = ((3, 13, 20), (2, 37, 50), (1, 5, 7), (1, 1, 1), (1, 541, 963))
+
+
 def edge_shapes(torch, fs, w, s, b):
-    """Both kernels at shapes that leave partial tiles in both directions,
-    tiny frames and batches, in both storage dtypes, against the plain
-    versions."""
+    """Both kernels at the edge shapes, in both storage dtypes, against the
+    plain versions."""
     rng = np.random.default_rng(1)
-    for B, h, wd in ((3, 13, 20), (2, 37, 50), (1, 5, 7), (1, 1, 1)):
+    for B, h, wd in EDGE_SHAPES:
         x = torch.from_numpy(rng.standard_normal(
             (B, h, wd, FEAT), dtype=np.float32)).cuda()
         for dt in (torch.bfloat16, torch.float32):
@@ -350,6 +358,27 @@ def edge_shapes(torch, fs, w, s, b):
                       f"{name} {(B, h, wd)} {dt}: max|kernel-plain| {err} "
                       f"> {KERNEL_RTOL} * {scale}")
     print("kernel edge shapes: ok", flush=True)
+
+
+def host_us_per_call(torch, fs, wk, s, b, n=400):
+    """Host microseconds a ``fwd_layer`` call at a tiny frame (the device is
+    never the limit), the wrapper's and the launch's (two TMA tensor maps
+    encoded a call), on one input and cycling through 16."""
+    xs = [torch.randn(1, 8, 16, FEAT, device="cuda").to(torch.bfloat16)
+          for _ in range(16)]
+    us = {}
+    for what, pick in (("one input", lambda i: xs[0]),
+                       ("16 inputs", lambda i: xs[i % 16])):
+        for i in range(32):
+            fs.fwd_layer(pick(i), wk, s, b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            fs.fwd_layer(pick(i), wk, s, b)
+        us[what] = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+    print("fwd_layer host us a call: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in us.items()), flush=True)
 
 
 def kernel_phase(torch, F, fs, cuda_time_ms):
@@ -375,11 +404,12 @@ def kernel_phase(torch, F, fs, cuda_time_ms):
 
     cases = []
     for B in (1, 4):
-        zb = z4[:B].to(torch.bfloat16).contiguous()
-        cases.append(("fwd_layer", B, zb,
-                      lambda x: fs.fwd_layer(x, wk, s, b),
-                      lambda x: fs.fwd_layer_plain(x, w, s, b),
-                      torch.relu(zb.float() * s + b)))
+        for dt in (torch.bfloat16, torch.float32):
+            zb = z4[:B].to(dt).contiguous()
+            cases.append(("fwd_layer", B, zb,
+                          lambda x: fs.fwd_layer(x, wk, s, b),
+                          lambda x: fs.fwd_layer_plain(x, w, s, b),
+                          torch.relu(zb.float() * s + b)))
         for dt in (torch.bfloat16, torch.float32):
             a = torch.relu(z4[:B]).to(dt).contiguous()
             cases.append(("fwd_layer_eval", B, a,
@@ -387,6 +417,7 @@ def kernel_phase(torch, F, fs, cuda_time_ms):
                           lambda x: fs.fwd_layer_eval_plain(x, w, s, b), a))
 
     edge_shapes(torch, fs, w, s, b)
+    host_us_per_call(torch, fs, wk, s, b)
     warm = cases[0]
     for _ in range(100):  # bring the clocks up before the first timing
         warm[3](warm[2])
@@ -488,7 +519,7 @@ def train_kernel_phase(torch, F, fs, cuda_time_ms):
     w = torch.from_numpy((rng.standard_normal((3, 3, FEAT, FEAT))
                           * np.sqrt(2.0 / (9 * FEAT))).astype(np.float32)).cuda()
     wk = fs.kernel_weights(w)
-    for shape in ((3, 13, 20), (2, 37, 50), (1, 5, 7), (1, 1, 1)):
+    for shape in EDGE_SHAPES:
         for dt in (torch.bfloat16, torch.float32):
             z_prev, z_i, g, vecs = train_inputs(torch, rng, shape, dt)
             hold_train_kernels(torch, fs, f"train kernels {shape} {dt}",
@@ -550,6 +581,36 @@ def train_kernel_phase(torch, F, fs, cuda_time_ms):
         print(f"kernel {name} B=1 bfloat16: err {err[0]:.3e} (plain max "
               f"{err[1]:.3e}) ms {ms:.4f} plain {plain_ms:.4f} library "
               f"{library_ms:.4f} bound {bms:.4f} ({by})", flush=True)
+    # the training forward at B=4 and on the f32 chain too
+    for B, dt in ((4, torch.bfloat16), (1, torch.float32)):
+        zp, _, _, _ = train_inputs(torch, rng, (B, H, W), dt)
+        z, stats = fs.fwd_layer_train(zp, wk, s, b)
+        torch.cuda.synchronize()
+        z_ref, stats_ref = fs.fwd_layer_train_plain(zp, w, s, b, mma_bf16=True)
+        tag = f"fwd_layer_train B={B} {str(dt).replace('torch.', '')}"
+        err = hold_close(tag, "z", z, z_ref, KERNEL_RTOL)
+        for k, name in enumerate(("sum_z", "sum_z2")):
+            hold_close(tag, name, stats[k], stats_ref[k], SUMS_RTOL)
+        check(torch.equal(fs.fwd_layer_train(zp, wk, s, b)[1], stats),
+              f"{tag}: sums differ between two runs on the same inputs")
+        a_lib = torch.relu(zp.float() * s + b).to(torch.bfloat16).permute(
+            0, 3, 1, 2)
+        ms = cuda_time_ms(lambda: fs.fwd_layer_train(zp, wk, s, b))
+        plain_ms = cuda_time_ms(lambda: fs.fwd_layer_train_plain(
+            zp, w, s, b, mma_bf16=True), iters=5)
+        library_ms = cuda_time_ms(no_tf32(lambda: F.conv2d(a_lib, w_lib,
+                                                           padding=1)))
+        bms, by = bound_ms(2 * zp.numel() * zp.element_size() + small
+                           + 2 * FEAT * 4, B * flops)
+        rows["fwd_layer_train"].append({
+            "B": B, "dtype": str(dt).replace("torch.", ""),
+            "max_abs_err": err[0], "max_abs_plain": err[1], "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bms,
+            "bound_by": by})
+        print(f"kernel {tag}: err {err[0]:.3e} (plain max {err[1]:.3e}) ms "
+              f"{ms:.4f} plain {plain_ms:.4f} library {library_ms:.4f} "
+              f"bound {bms:.4f} ({by})", flush=True)
+        del zp, z, z_ref
     # as run, bwd_layer reads g, z_i and z_prev as (8+2) x (16+2) halo tiles
     # of its 8 x 16 pixel tiles
     halo = (8 + 2) * (16 + 2) / (8 * 16)
@@ -2130,6 +2191,10 @@ def main():
             for entry, regs, spill in ptxas_entries(report):
                 print(f"  ptxas {name}: {entry} {regs} registers, {spill}",
                       flush=True)
+            # ptxas serialises wgmma it cannot keep in flight: none expected
+            for line in report.splitlines():
+                if "Performance Loss" in line:
+                    print(f"  ptxas {name}: {line.strip()}", flush=True)
 
         rows = kernel_phase(torch, F, fs, cuda_time_ms)
         rows.update(train_kernel_phase(torch, F, fs, cuda_time_ms))

@@ -7,8 +7,8 @@ another tree's (the parent commit's), on one card in one process.
 Builds ``frame2frame_tpu_torch/csrc/{fused_stack,fused_stack_bwd,conv3x3}.cu``
 of both trees with the port's nvcc flags into ``build/ab/``, then times each
 kernel at 540x960 on bf16 operands with CUDA events in turns: parent,
-change, change, parent (the forward layers, ``bwd_layer`` and kernel B at
-64->64, 1->64 and 64->1). ``bwd_layer``'s C interface changed from two
+change, change, parent (the forward layers, also on the f32 chain,
+``bwd_layer`` and kernel B at 64->64, 1->64 and 64->1). ``bwd_layer``'s C interface changed from two
 kernels with a dz scratch to one kernel; the script calls each tree's own.
 Prints the card line and one JSON object. Needs a CUDA card and nvcc.
 """
@@ -83,6 +83,7 @@ def main(argv=None):
                        0.5 + torch.rand(C, device=dev, generator=gen),
                        randn(C, scale=0.1)])
     out = torch.empty_like(z)
+    zf, outf = z.float(), torch.empty_like(z, dtype=torch.float32)
     da, dz = torch.empty_like(z), torch.empty_like(z)
     stats = torch.empty(2 * C + 9 * C * C, device=dev)
     part = torch.empty(rows, 2 * C + 9 * C * C, device=dev)
@@ -108,11 +109,17 @@ def main(argv=None):
         dwk.argtypes = [vp, vp, ci, vp, vp] + [ci] * 6 + [vp]
         p = lambda t: t.data_ptr()  # noqa: E731
         args = (p(z), 0, p(w), p(s), p(b), p(out), 1, H, W, stream)
+        args_f32 = (p(zf), 1, p(w), p(s), p(b), p(outf), 1, H, W, stream)
         out_calls = {
             "fwd_layer": lambda: fs.f2f_fwd_layer(*args),
             "fwd_layer_eval": lambda: fs.f2f_fwd_layer_eval(*args),
             "fwd_layer_train": lambda: fs.f2f_fwd_layer_train(
                 p(z), 0, p(w), p(s), p(b), p(out), p(stats), p(part_stats),
+                rows, 1, H, W, stream),
+            "fwd_layer f32": lambda: fs.f2f_fwd_layer(*args_f32),
+            "fwd_layer_eval f32": lambda: fs.f2f_fwd_layer_eval(*args_f32),
+            "fwd_layer_train f32": lambda: fs.f2f_fwd_layer_train(
+                p(zf), 1, p(w), p(s), p(b), p(outf), p(stats), p(part_stats),
                 rows, 1, H, W, stream),
             "bwd_layer": (lambda: bwd(
                 p(g), p(zi), p(z), 0, p(w), p(vec), 0, p(da), p(dz),

@@ -72,9 +72,11 @@ def test_cuda_sources_stand_alone():
                                          "fused_stack_bwd.cu",
                                          "tvl1_inner.cu"]
     # cooperative_groups.h: the toolkit's header for the barrier across all
-    # blocks that the flow's inner loop takes once an iteration
+    # blocks that the flow's inner loop takes once an iteration; cuda.h: the
+    # toolkit's driver types, for the forward's TMA tensor maps
     allowed = {"cuda_bf16.h", "cuda_runtime.h", "stdint.h", "atomic",
-               "type_traits", "conv3x3_c64.cuh", "cooperative_groups.h"}
+               "type_traits", "conv3x3_c64.cuh", "cooperative_groups.h",
+               "cuda.h"}
     for f in sources:
         text = f.read_text()
         included = set(re.findall(r'#include\s+[<"]([^>"]+)[>"]', text))
