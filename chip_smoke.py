@@ -57,14 +57,16 @@ Phases, any failure exits non-zero:
    flow and against the same solve on the CPU, with no kernel launched;
 8. the ``conv_impl`` routes' kernels (``ops/conv3x3.py`` kernel A,
    ``ops/conv_dw.py`` kernel B): the port's library convolution against
-   float64 under PyTorch's default TF32 flags (the script sets none); A and
-   B against their plain versions at edge shapes (1->64, 64->64, 64->1,
-   3->64, 8->8 at 13x21, B=2, more than 64 channels) and at 540x960 64->64
-   (B on f32 and bf16 operands) and B on bf16 at the thin layers 1->64 and
-   64->1, within 1e-5 of the largest plain value, B's
-   bits on two runs; ``conv3x3_p2`` and ``conv3x3_dwflat`` once each; times
-   beside the bound, the plain version and a library call (``F.conv2d``,
-   ``aten.convolution_backward`` weight-only, with TF32 off);
+   float64 under PyTorch's default TF32 flags (the script sets none), and
+   A and B on f32 operands (split-f32 products on the tensor cores) against
+   float64 on the same 64x96 inputs; A and B against their plain versions
+   at edge shapes (1->64, 64->64, 64->1, 3->64, 8->8 at 13x21, B=2, more
+   than 64 channels) and at 540x960 64->64, 1->64 and 64->1 (B on f32 and
+   bf16 operands), within 1e-5 of the largest plain value, B's bits on two
+   runs; ``conv3x3_p2`` and ``conv3x3_dwflat`` once each; times beside the
+   bound of the body that ran (and the f32 FMA bound), the plain version
+   and a library call (``F.conv2d``, ``aten.convolution_backward``
+   weight-only, with TF32 off);
 9. the ``conv_impl`` routes of the pretrained DnCNN-17 ("pallas", "hybrid",
    "bf16res", "packed_bf16"): one step's gradients on the kernels against
    the plain versions' backward from the same forward; two 540p frames
@@ -111,6 +113,7 @@ SIGMA = 25.0 / 255.0
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 F32_FLOP_PER_S = 67e12  # outside the tensor cores
+TF32_FLOP_PER_S = 495e12
 # max |kernel - plain| <= KERNEL_RTOL * max |plain|: the kernels round their
 # MMA operands to bf16 (weights, and f32 activations) where the plain
 # versions multiply in f32, and a bf16 output is itself rounded to 2^-8.
@@ -1740,10 +1743,11 @@ def conv_inputs(torch, rng, B, h, wd, cin, cout):
 
 def conv_kernel_phase(torch, F, cuda_time_ms):
     """Kernels A (``conv3x3_fwd``) and B (``dw_conv3x3``) against their
-    plain versions at edge shapes and at 540x960 64->64 (B on f32 and bf16
-    operands), B's bits on two runs, times beside the bound and a library
-    yardstick; ``conv3x3_p2`` and ``conv3x3_dwflat`` once each. Returns the
-    per-kernel rows."""
+    plain versions at edge shapes and at 540x960 64->64, 1->64 and 64->1
+    (B on f32 and bf16 operands), A and B on f32 against float64, B's bits
+    on two runs, times beside the bound and a library yardstick;
+    ``conv3x3_p2`` and ``conv3x3_dwflat`` once each. Returns the per-kernel
+    rows (the 540p 64->64 f32 row first)."""
     from frame2frame_tpu_torch.ops import conv3x3 as c3
     from frame2frame_tpu_torch.ops import conv_dw as cdw
     from frame2frame_tpu_torch.ops import fused_stack as fs
@@ -1782,6 +1786,40 @@ def conv_kernel_phase(torch, F, cuda_time_ms):
               f" ran in reduced precision: {err / scale} off float64")
     check(not torch.backends.cuda.matmul.allow_tf32,
           "f32 matmuls (the plain versions' einsums) would run in TF32")
+    # kernels A and B on f32 operands take split-f32 products on the TF32
+    # tensor cores: held to float64 like the library, where one TF32 pass
+    # would read ~1e-3
+    y64, _, dw64 = results[0]
+    lib = {what: rel_err(got, ref) for what, ref, got in
+           zip(("forward", "dW"), (y64, dw64), (results[1][0], results[1][2]))}
+    for name, what, got, ref in (
+            ("conv3x3_fwd", "forward", c3.conv3x3_fwd(x, w),
+             y64.permute(0, 2, 3, 1)),
+            ("dw_conv3x3", "dW", cdw.dw_conv3x3(x, g),
+             dw64.permute(2, 3, 1, 0))):
+        torch.cuda.synchronize()
+        err, scale = rel_err(got, ref)
+        print(f"conv f32: kernel {name} against float64 {err / scale:.3e} of "
+              f"its largest value (the library's {what} "
+              f"{lib[what][0] / lib[what][1]:.3e})", flush=True)
+        check(err <= CONV_RTOL * scale, f"{name} f32: {err / scale} off "
+              "float64, not an f32 product")
+    # a contiguous view at an odd offset is refused before a launch: the
+    # tensor-core bodies read x and g with 16-byte cp.async
+    flat = torch.zeros(1 + x.numel(), device="cuda")
+    odd = flat[1:].view(x.shape)
+    for fn, args in ((c3.conv3x3_fwd, (odd, w)), (cdw.dw_conv3x3, (odd, g))):
+        launches = fn.launches
+        try:
+            fn(*args)
+            check(False, f"{fn.__name__}: a view 4 bytes off a 16-byte "
+                  "boundary was launched")
+        except ValueError:
+            pass
+        check(fn.launches == launches, f"{fn.__name__}: counted a launch "
+              "it refused")
+    torch.cuda.synchronize()
+    print("conv kernels: unaligned f32 views refused", flush=True)
 
     for B, h, wd, cin, cout in ((1, 13, 21, 1, 64), (2, 13, 21, 64, 64),
                                 (1, 13, 21, 64, 1), (2, 13, 21, 3, 64),
@@ -1833,29 +1871,35 @@ def conv_kernel_phase(torch, F, cuda_time_ms):
     print("conv3x3_p2, conv3x3_dwflat: forward, dX and dW against the plain "
           "versions: ok", flush=True)
 
-    # 540x960: 64 -> 64, the shape of the mid layers, and B on bf16 at the
-    # thin layers 1 -> 64 and 64 -> 1 of the "packed_bf16" route
+    # 540x960: 64 -> 64, the shape of the mid layers, and the thin layers
+    # 1 -> 64 and 64 -> 1 of every route (A and B on f32 operands, B on
+    # bf16 for "packed_bf16" and "bf16res")
     x, w, g = conv_inputs(torch, rng, 1, H, W, FEAT, FEAT)
     w_lib = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-    act = x.numel() * 4
     warm = lambda: c3.conv3x3_fwd(x, w)  # noqa: E731
     for _ in range(20):  # bring the clocks up before the first timing
         warm()
     rows = {"conv3x3_fwd": [], "dw_conv3x3": []}
-    cases = [("conv3x3_fwd", "float32", FEAT, FEAT,
-              lambda: c3.conv3x3_fwd(x, w),
-              lambda: c3.conv3x3_fwd_plain(x, w),
-              no_tf32(lambda: F.conv2d(x.permute(0, 3, 1, 2), w_lib,
-                                       padding=1)),
-              2 * act + w.numel() * 4, F32_FLOP_PER_S)]
+    cases = []
+    for cin, cout in ((FEAT, FEAT), (1, FEAT), (FEAT, 1)):
+        xc, wc = x[..., :cin].contiguous(), w[:, :, :cin, :cout].contiguous()
+        cases.append((
+            "conv3x3_fwd", "float32", cin, cout,
+            functools.partial(c3.conv3x3_fwd, xc, wc),
+            functools.partial(c3.conv3x3_fwd_plain, xc, wc),
+            no_tf32(functools.partial(F.conv2d, xc.permute(0, 3, 1, 2),
+                                      w_lib[:cout, :cin], padding=1)),
+            (xc.numel() + H * W * cout + wc.numel()) * 4))
     for dt, cin, cout in ((torch.float32, FEAT, FEAT),
+                          (torch.float32, 1, FEAT),
+                          (torch.float32, FEAT, 1),
                           (torch.bfloat16, FEAT, FEAT),
                           (torch.bfloat16, 1, FEAT),
                           (torch.bfloat16, FEAT, 1)):
-        xd, gd = x[..., :cin].to(dt), g[..., :cout].to(dt)
+        xd = x[..., :cin].contiguous().to(dt)
+        gd = g[..., :cout].contiguous().to(dt)
         xl, gl = xd.permute(0, 3, 1, 2), gd.permute(0, 3, 1, 2)
         wl = w_lib[:cout, :cin].to(dt)
-        peak = F32_FLOP_PER_S if dt == torch.float32 else BF16_FLOP_PER_S
         cases.append((
             "dw_conv3x3", str(dt).replace("torch.", ""), cin, cout,
             functools.partial(cdw.dw_conv3x3, xd, gd),
@@ -1864,9 +1908,8 @@ def conv_kernel_phase(torch, F, cuda_time_ms):
                 torch.ops.aten.convolution_backward, gl, xl, wl, None,
                 [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
                 [False, True, False])),
-            (xd.numel() + gd.numel()) * xd.element_size() + 9 * cin * cout * 4,
-            peak))
-    for name, dtype, cin, cout, kern, plain, library, nbytes, peak in cases:
+            (xd.numel() + gd.numel()) * xd.element_size() + 9 * cin * cout * 4))
+    for name, dtype, cin, cout, kern, plain, library, nbytes in cases:
         tag = f"{name} 540p {cin}->{cout} {dtype}"
         got = kern()
         torch.cuda.synchronize()
@@ -1878,14 +1921,28 @@ def conv_kernel_phase(torch, F, cuda_time_ms):
         ms = cuda_time_ms(kern)
         plain_ms = cuda_time_ms(plain, iters=5)
         library_ms = cuda_time_ms(library)
-        bms, by = bound_ms(nbytes, 2 * H * W * cin * cout * 9, peak)
+        flops = 2 * H * W * cin * cout * 9
+        # the bound of the body that ran: bf16 MMAs; on f32 operands three
+        # TF32 products (split f32) where both channel counts are multiples
+        # of 8, else f32 FMAs; the FMA bound of the f32 function beside it
+        if dtype == "bfloat16":
+            bms, by = bound_ms(nbytes, flops)
+        elif cin % 8 == 0 and cout % 8 == 0:
+            bms, by = bound_ms(nbytes, 3 * flops, TF32_FLOP_PER_S)
+        else:
+            bms, by = bound_ms(nbytes, flops, F32_FLOP_PER_S)
         row = {"B": 1, "dtype": dtype, "cin": cin, "cout": cout,
                "max_abs_err": err, "max_abs_plain": scale, "ms": ms,
                "plain_ms": plain_ms, "library_ms": library_ms,
                "bound_ms": bms, "bound_by": by}
+        if dtype == "float32":
+            row["bound_f32_fma_ms"] = bound_ms(nbytes, flops,
+                                               F32_FLOP_PER_S)[0]
         print(f"kernel {tag}: err {err:.3e} (plain max {scale:.3e}) ms "
               f"{ms:.4f} plain {plain_ms:.4f} library {library_ms:.4f} "
-              f"bound {bms:.4f} ({by})", flush=True)
+              f"bound {bms:.4f} ({by})" + (
+                  f", f32 FMA bound {row['bound_f32_fma_ms']:.4f}"
+                  if dtype == "float32" else ""), flush=True)
         rows[name].append(row)
     del x, g, cases
     torch.cuda.empty_cache()

@@ -9,8 +9,8 @@
 // NHWC f32 x and y, HWIO f32 W, zero outside the image (the padding is done
 // here, no padded copy is made). dX of the convolution is the same kernel
 // on the cotangent with the spatially flipped, io-transposed weights, as in
-// the JAX package. Every product is an f32 FMA: the function is f32, and the
-// reference multiplies in f32, so no tensor core (TF32 would keep 10 bits).
+// the JAX package. The function is f32 and the reference multiplies in f32;
+// the TPU kernel took its matrix unit (jnp.dot at default precision).
 //
 // f2f_dw_conv3x3 (kernel B) replaces frame2frame_tpu/ops/conv_dw.py:
 // dw_conv3x3 / dw_conv3x3_batched (_dw_kernel, pair-packed) and
@@ -23,33 +23,78 @@
 // dW and finish_sums (conv3x3_c64.cuh) adds the partials in block order, in
 // double: no atomics, the same bits on every run.
 //
-// Bound at 540p, 64 -> 64, f32 (one launch of either kernel): 2 * 540 * 960
-// * 64 * 64 * 9 = 38.2 GFLOP -> 0.57 ms at 67 TFLOP/s (f32 outside the tensor
-// cores), against 265 MB of inputs and output -> 0.079 ms at 3.35 TB/s: both
-// are bound by operations. On bf16 operands the product of two values is
-// exact in f32, so kernel B takes them to the tensor cores (bf16 x bf16 ->
-// f32 MMA) and computes the same function up to the order of its f32 sums:
-// 38.2 GFLOP -> 0.039 ms at 989 TFLOP/s against 133 MB -> 0.040 ms, bound by
-// bytes.
+// Split f32 on the TF32 tensor cores (kernel A, and kernel B on f32
+// operands, where Cin and Cout are multiples of 8). One TF32 pass keeps 10
+// mantissa bits of each operand: 3e-4 of the largest output off float64 at
+// 64 -> 64 (tests/test_torch_conv_split.py), 30x the 1e-5 that the plain
+// versions are held to. Each operand x is split in registers into hi =
+// x rounded to TF32 (to nearest) and lo = x - hi, exact in f32, |lo| <=
+// 2^-12 |x|; a product is hi*lo + lo*hi + hi*hi (three TF32 MMAs, small
+// terms first), lo*lo (< 2^-22 of it) dropped, and the tensor core reads lo
+// truncated to TF32 (an error below 2^-22 again). That is 7e-8 to 1e-7 of
+// the largest output in emulation; on the card 1e-6 (A, wgmma) and 1.3e-7
+// (B, mma.sync) off float64: f32, not TF32. The tensor core adds into its
+// accumulator truncated, which over a weight gradient's thousands of k
+// steps biased dW by 3e-5 of its largest value at 540p; so each chain of
+// products starts from zero and is added to running f32 sums rounded to
+// nearest (add4(), and A's sums over its 16-channel units).
 //
-// Kernel A: a block of 256 threads computes a tile of 8*NPG/2 x 16 pixels by
-// COT output channels (COT = 64, or 8 where Cout <= 8, so the 64 -> 1 layer
-// does not compute 63 empty channels), one thread 8 pixels of a row by 8
-// channels in 64 f32 accumulators. Input channels go in chunks of CI: the
-// chunk's halo tile (zeros outside the image) and its 9 x CI x COT weights
-// are staged in shared memory, then each thread reads ten input values of a
-// halo row and eight weights a tap and does 8 x 8 FMAs with them (about 20
-// FMAs a shared-memory load). Weights are stored with the first and second
-// four channels of each thread's eight in separate halves, so that the
-// eight threads of a quarter warp read 128 contiguous bytes.
+// Bounds at 540p, 64 -> 64, f32 (one launch of either kernel): 2 * 540 *
+// 960 * 64 * 64 * 9 = 38.2 GFLOP -> 0.5705 ms as f32 FMAs at 67 TFLOP/s;
+// as run, three TF32 products, 115 GFLOP -> 0.2316 ms at 495 TFLOP/s;
+// against 265 MB of inputs and output -> 0.079 ms at 3.35 TB/s: bound by
+// operations. On an H100, mma.sync of TF32 issues at about half that peak
+// (a pass of kernel B costs 0.15 ms, PERF.md section 6), which puts the
+// floor of B's route near 0.46 ms. On bf16 operands the
+// product of two values is exact in f32, so kernel B takes them to the
+// tensor cores (bf16 x bf16 -> f32 MMA) and computes the same function up
+// to the order of its f32 sums: 38.2 GFLOP -> 0.039 ms at 989 TFLOP/s
+// against 133 MB -> 0.040 ms, bound by bytes.
 //
-// Kernel B on f32 operands (dw_conv3x3_k): f32 FMAs, since TF32 would keep
-// 10 bits. A block is 9 taps x CG x OG threads (576 for 64 -> 64), one
-// thread the 8 x 8 block of dW of one tap, 8 input and 8 output channels, in
-// 64 f32 accumulators. Blocks walk 4 x 16 pixel tiles in a grid-stride loop;
-// a tile's x halo and g values are staged in shared memory, then each thread
-// runs over the tile's 64 pixels: two float4 loads of x at the pixel shifted
-// by its tap, two of g, 64 FMAs.
+// Kernel A on the tensor cores (conv3x3_wg): wgmma m64n64k8 tf32 with the
+// weights as A, split in registers and loaded from L2 a tap ahead (147 KB
+// of f32 weights resident in shared memory would leave no room for the
+// pixels' lo), and the pixels as B from shared memory, hi and lo in two
+// halves of a stage; 16 x 8 output tiles, 16 input channels a stage, a
+// ring of three (kernel comment). Measured against the first body, which
+// held the weights resident and took every product on mma.sync.m16n8k8
+// (0.62 ms at 540p 64 -> 64): 0.52-0.54 ms. With one pass in place of
+// three it takes 0.42 ms, so it is bound by its own latencies (one
+// warpgroup a block, two blocks a multiprocessor, by registers and the
+// running sums' 32 KB) more than by the tensor cores.
+//
+// Kernel A on f32 FMAs (conv3x3_f32), for the thin layers (1 -> 64, 64 ->
+// 1) and channel counts that are not multiples of 8, bound by their 133 MB
+// of bytes (0.040 ms): a block of 256 threads computes a tile of 8*NPG/2 x
+// 16 pixels by COT output channels (COT = 64, or 8 where Cout <= 8, so the
+// 64 -> 1 layer does not compute 63 empty channels), one thread 8 pixels of
+// a row by 8 channels in 64 f32 accumulators. Input channels go in chunks
+// of CI: the chunk's halo tile (zeros outside the image) and its 9 x CI x
+// COT weights are staged in shared memory, then each thread reads ten input
+// values of a halo row and eight weights a tap and does 8 x 8 FMAs with
+// them. Weights are stored with the first and second four channels of each
+// thread's eight in separate halves, so that the eight threads of a quarter
+// warp read 128 contiguous bytes.
+//
+// Kernel B on f32 operands on the tensor cores (dw_tc_k): the weight
+// gradient as a product with the pixels as k, in the frame of the bf16 body
+// below. A persistent block of 12 warps owns 64 input by 64 output
+// channels and walks 8 x 16 pixel tiles, the tile's f32 x halo (46 KB) and
+// g (32 KB) two in flight (cp.async, swizzled 256-byte pixel rows). dW of
+// the block is 18 (tap, 32 input channels) units by two halves of 32
+// output channels; a warp takes three units of one half, 96 accumulators.
+// A k8 step is 8 pixels of a tile row: one 16-byte load of a pixel gives a
+// lane four channels, which are rows g and g + 8 of two m16 tiles of x^T or
+// column g of four n8 tiles of g. Channels past Cin or Cout are copied as
+// zeros and never written out.
+//
+// Kernel B on f32 FMAs (dw_conv3x3_k), for the thin layers and odd channel
+// counts: a block is 9 taps x CG x OG threads, one thread the 8 x 8 block
+// of dW of one tap, 8 input and 8 output channels, in 64 f32 accumulators.
+// Blocks walk 4 x 16 pixel tiles in a grid-stride loop; a tile's x halo
+// and g values are staged in shared memory, then each thread runs over the
+// tile's 64 pixels: two float4 loads of x at the pixel shifted by its tap,
+// two of g, 64 FMAs.
 //
 // Kernel B on bf16 operands (dw_mma_k): the weight gradient as a matrix
 // product with the pixels as the MMA's k, as the mid layers' dW in
@@ -210,6 +255,313 @@ int launch_conv3x3(const float* x, const float* w, float* y, int B, int H,
   return (int)cudaGetLastError();
 }
 
+// ---- split-f32 products on the TF32 tensor cores (kernel A, kernel B f32)
+
+// x rounded to TF32 (11 significant bits, to nearest, ties away from zero:
+// cvt.rna.tf32.f32 on finite values, done as an integer add and mask, which
+// issue at four times the rate of the conversion) and the rest, x - hi,
+// exact in f32; the tensor core reads lo truncated.
+struct Split {
+  uint32_t hi, lo;
+};
+
+__device__ __forceinline__ Split split(float x) {
+  const uint32_t h = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  return {h, __float_as_uint(x - __uint_as_float(h))};
+}
+
+__device__ __forceinline__ void mma_tf32(float c[4], uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// c += a b in split f32: hi lo, lo hi, hi hi, the small terms first; lo lo
+// (below 2^-22 of the product) is dropped.
+__device__ __forceinline__ void mma_split(float c[4], const Split (&a)[4],
+                                          const Split (&b)[2]) {
+  mma_tf32(c, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b[0].lo, b[1].lo);
+  mma_tf32(c, a[0].lo, a[1].lo, a[2].lo, a[3].lo, b[0].hi, b[1].hi);
+  mma_tf32(c, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b[0].hi, b[1].hi);
+}
+
+// The running f32 sums, added to rounded to nearest: the tensor core's own
+// accumulation truncates (source note).
+__device__ __forceinline__ void add4(float acc[4], const float d[4]) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) acc[q] += d[q];
+}
+
+__device__ __forceinline__ float4 lds128(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0,%1,%2,%3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+constexpr int G_THREADS = 128;               // one warpgroup
+constexpr int G_TR = 16, G_TC = 8;           // output tile: 16 rows x 8 columns
+constexpr int G_HR = G_TR + 2, G_HC = G_TC + 2;
+constexpr int G_CHUNKS = G_HR * G_HC * 4;    // 16-byte chunks of a stage
+constexpr int G_HALF = (G_HR * G_HC * 64 + 511) / 512 * 512;  // 16 channels
+constexpr int G_STAGE = 2 * G_HALF;          // hi | lo
+constexpr int G_NST = 3;
+constexpr int G_SMEM = G_NST * G_STAGE + 64 * G_THREADS * 4 + 512;
+
+struct WgArgs {
+  const float* x;
+  const float* w;
+  float* y;
+  int B, H, W, Cin, Cout, ncc, tiles_y, tiles_x;
+};
+
+// byte offset of chunk q (4 channels) of pixel row p in a stage: 64-byte
+// rows in wgmma's 64-byte swizzle (address bits 4-5 ^= bits 7-8)
+__device__ __forceinline__ int g_off(int p, int q) {
+  return p * 64 + ((q ^ ((p >> 1) & 3)) << 4);
+}
+
+__device__ __forceinline__ uint64_t desc_sw64(uint32_t saddr, uint32_t sbo) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | (1ull << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (2ull << 62);
+}
+
+__device__ __forceinline__ void g_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void g_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void g_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void g_fence_acc(float (&d)[2][32]) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[j][i])::"memory");
+}
+
+// d (64 x 64 f32) (+)= A (64 x 8 tf32, registers) * B (8 x 64 tf32,
+// K-major in shared memory); scale_d = 0 starts d from zero
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wg_tile(const WgArgs& a, long tile,
+                                        size_t& row0, int& y0, int& x0) {
+  const long r = tile / a.tiles_x;
+  x0 = (int)(tile - r * a.tiles_x) * G_TC;
+  y0 = (int)(r % a.tiles_y) * G_TR;
+  row0 = (size_t)(r / a.tiles_y) * a.H;
+}
+
+// input channels 16 cc .. + 16 of the tile's halo into the stage's hi half
+__device__ __forceinline__ void wg_copy(const WgArgs& a, long tile, int cc,
+                                        uint32_t dst) {
+  size_t row0;
+  int y0, x0;
+  wg_tile(a, tile, row0, y0, x0);
+  for (int e = threadIdx.x; e < G_CHUNKS; e += G_THREADS) {
+    const int p = e >> 2, q = e & 3;
+    const int hy = p / G_HC, hx = p - hy * G_HC;
+    const int yy = y0 + hy - 1, xx = x0 + hx - 1, c = 16 * cc + 4 * q;
+    const bool in = yy >= 0 && yy < a.H && xx >= 0 && xx < a.W && c < a.Cin;
+    f2f::cp_async16(dst + g_off(p, q),
+                    in ? a.x + ((row0 + yy) * a.W + xx) * a.Cin + c : a.x, in);
+  }
+}
+
+// Kernel A on wgmma for Cin and Cout multiples of 8: output channels 64
+// blockIdx.y .. as wgmma's M (A: the weights, from registers, split there),
+// the pixels of a 16 x 8 output tile as N (B: the halo in shared memory,
+// K-major as NHWC lies, two n64 halves of 8 tile rows whose 8-pixel groups
+// sit G_HC pixels apart), k the input channels of one tap. A persistent
+// block (one warpgroup, two a multiprocessor) walks its tiles in units of
+// 16 input channels; a unit's halo comes by cp.async into a ring of three
+// stages and is split in place (hi; lo into the stage's second half)
+// while the unit before it runs its products. A unit's products (9 taps x
+// 2 k8 steps x 3 a sum) start from zero; the tile's running sums over its
+// units are f32 adds in shared memory.
+__global__ void __launch_bounds__(G_THREADS, 2) conv3x3_wg(const WgArgs a) {
+  extern __shared__ unsigned char g_raw[];
+  const uint32_t raw_s = (uint32_t)__cvta_generic_to_shared(g_raw);
+  const uint32_t pad = ((raw_s + 511) & ~511u) - raw_s;
+  unsigned char* base = g_raw + pad;
+  const uint32_t base_s = raw_s + pad;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int oa = blockIdx.y * 64 + 16 * warp + g, ob = oa + 8;
+  const long ntiles = (long)a.B * a.tiles_y * a.tiles_x;
+  const int mine =
+      blockIdx.x < ntiles
+          ? (int)((ntiles - blockIdx.x + gridDim.x - 1) / gridDim.x)
+          : 0;
+  const int nunits = mine * a.ncc;
+  auto tile_of = [&](int u) {
+    return blockIdx.x + (long)(u / a.ncc) * gridDim.x;
+  };
+  auto issue = [&](int u) {
+    if (u < nunits)
+      wg_copy(a, tile_of(u), u % a.ncc, base_s + (u % G_NST) * G_STAGE);
+    f2f::cp_async_commit();
+  };
+  // this lane's weights of one (tap, 16 channels): A rows oa, ob, columns
+  // (k) t and t + 4 of two k8 steps
+  auto wload = [&](int cc, int tap, float (&r)[8]) {
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = 16 * cc + 8 * ks + t + 4 * (i >> 1);
+        const int o = (i & 1) ? ob : oa;
+        const size_t at = ((size_t)tap * a.Cin + c) * a.Cout + o;
+        r[4 * ks + i] = c < a.Cin && o < a.Cout ? __ldg(a.w + at) : 0.f;
+      }
+  };
+
+  // a landed stage's values split in place: hi stays, lo goes to the
+  // stage's second half; both are read by wgmma through the async proxy
+  auto split_stage = [&](int u) {
+    unsigned char* st = base + (u % G_NST) * G_STAGE;
+    for (int e = tid; e < G_CHUNKS; e += G_THREADS) {
+      const int off = g_off(e >> 2, e & 3);
+      float4* hp = reinterpret_cast<float4*>(st + off);
+      const float4 v = *hp;
+      const Split sx = split(v.x), sy = split(v.y), sz = split(v.z),
+                  sw = split(v.w);
+      *hp = make_float4(__uint_as_float(sx.hi), __uint_as_float(sy.hi),
+                        __uint_as_float(sz.hi), __uint_as_float(sw.hi));
+      *reinterpret_cast<float4*>(st + G_HALF + off) =
+          make_float4(__uint_as_float(sx.lo), __uint_as_float(sy.lo),
+                      __uint_as_float(sz.lo), __uint_as_float(sw.lo));
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  };
+
+  issue(0);
+  issue(1);
+  f2f::cp_async_wait<1>();  // unit 0 has landed
+  __syncthreads();
+  split_stage(0);
+  // per thread 64 running sums, [sum][thread]
+  float* accs = reinterpret_cast<float*>(base + G_NST * G_STAGE);
+  float tmp[2][32];
+  float wr[8];  // the weights of the next (tap, chunk) step, loaded ahead
+  wload(0, 0, wr);
+  for (int u = 0; u < nunits; ++u) {
+    const int cc = u % a.ncc;
+    issue(u + 2);
+    __syncthreads();  // unit u's stage is split
+    const uint32_t hs = base_s + (u % G_NST) * G_STAGE, ls = hs + G_HALF;
+    uint32_t ah[2][2][4], al[2][2][4];  // [tap & 1][k8 step][register]
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int buf = tap & 1, dy = tap / 3, dx = tap % 3;
+      if (tap >= 2) g_wait<1>();  // tap - 2's products are done with buf
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const Split s = split(wr[4 * ks + i]);
+          ah[buf][ks][i] = s.hi;
+          al[buf][ks][i] = s.lo;
+        }
+      if (tap < 8) wload(cc, tap + 1, wr);
+      else if (u + 1 < nunits) wload((u + 1) % a.ncc, 0, wr);
+      g_fence_acc(tmp);
+      g_fence();
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          // N: tile rows 8h .. 8h + 7 of 8 pixels, G_HC pixels apart
+          const int p = (8 * h + dy) * G_HC + dx;
+          const uint64_t dh = desc_sw64(hs + p * 64 + 32 * ks, G_HC * 64);
+          const uint64_t dl = desc_sw64(ls + p * 64 + 32 * ks, G_HC * 64);
+          wgmma_tf32(tmp[h], ah[buf][ks], dl, tap + ks > 0);
+          wgmma_tf32(tmp[h], al[buf][ks], dh, 1);
+          wgmma_tf32(tmp[h], ah[buf][ks], dh, 1);
+        }
+      g_commit();
+      if (tap == 4 && u + 1 < nunits) {  // the next unit's split, meanwhile
+        f2f::cp_async_wait<1>();
+        __syncthreads();
+        split_stage(u + 1);
+      }
+    }
+    g_wait<0>();
+    g_fence_acc(tmp);
+
+    // the tile's running sums over its channel chunks, in shared memory
+    if (cc < a.ncc - 1) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          float* r = accs + (32 * h + i) * G_THREADS + tid;
+          *r = cc ? *r + tmp[h][i] : tmp[h][i];
+        }
+    } else {
+      size_t row0;
+      int y0, x0;
+      wg_tile(a, tile_of(u), row0, y0, x0);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int yy = y0 + 8 * h + j;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int xx = x0 + 2 * t + (i & 1);
+            const int o = (i >> 1) ? ob : oa;
+            const int k = 4 * j + i;
+            const float v =
+                cc ? accs[(32 * h + k) * G_THREADS + tid] + tmp[h][k]
+                   : tmp[h][k];
+            if (yy < a.H && xx < a.W && o < a.Cout)
+              a.y[((row0 + yy) * a.W + xx) * a.Cout + o] = v;
+          }
+        }
+    }
+    __syncthreads();  // unit u's stage is read before issue(u + 3) refills it
+  }
+}
+
+int launch_conv3x3_wg(const float* x, const float* w, float* y, int B, int H,
+                      int W, int Cin, int Cout, void* stream) {
+  static f2f::Resident resident;
+  const WgArgs a = {x, w, y, B, H, W, Cin, Cout, (Cin + 15) / 16,
+                    (H + G_TR - 1) / G_TR, (W + G_TC - 1) / G_TC};
+  int grid = 0;
+  int rc = f2f::persistent_grid(conv3x3_wg, G_THREADS, G_SMEM,
+                                (long)B * a.tiles_y * a.tiles_x, 0, &resident,
+                                &grid);
+  if (rc != 0) return rc;
+  conv3x3_wg<<<dim3(grid, (Cout + 63) / 64), G_THREADS, G_SMEM,
+               (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 constexpr int B_TH = 4;                       // pixel tile rows
 constexpr int B_TW = 16;                      // pixel tile columns
 constexpr int B_HW = B_TW + 2;                // halo columns
@@ -301,9 +653,9 @@ dw_conv3x3_k(const float* __restrict__ x, const float* __restrict__ g,
   }
 }
 
-int launch_dw_f32(const void* x, const void* g, float* dw, float* partial,
-              int max_blocks, int B, int H, int W, int Cin, int Cout,
-              void* stream) {
+int launch_dw_fma(const void* x, const void* g, float* dw, float* partial,
+                  int max_blocks, int B, int H, int W, int Cin, int Cout,
+                  void* stream) {
   const int tiles_y = (H + B_TH - 1) / B_TH;
   const int tiles_x = (W + B_TW - 1) / B_TW;
   const long ntiles = (long)B * tiles_y * tiles_x;
@@ -316,6 +668,174 @@ int launch_dw_f32(const void* x, const void* g, float* dw, float* partial,
   const int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
   return f2f::finish(partial, blocks, 9 * Cin * Cout, dw, stream);
+}
+
+constexpr int D_WARPS = 12;
+constexpr int D_THREADS = D_WARPS * 32;
+constexpr int D_TH = 8, D_TW = 16;           // pixel tile: 8 x 16
+constexpr int D_HW = D_TW + 2;               // halo columns
+constexpr int D_XH_BYTES = (D_TH + 2) * D_HW * 64 * 4;   // 46,080
+constexpr int D_G_BYTES = D_TH * D_TW * 64 * 4;          // 32,768
+constexpr int D_STAGE_BYTES = D_XH_BYTES + D_G_BYTES;
+constexpr int D_SMEM_BYTES = 2 * D_STAGE_BYTES;          // 157,696
+
+struct DwF32Args {
+  const float* x;
+  const float* g;
+  float* partial;
+  int B, H, W, Cin, Cout, tiles_y, tiles_x;
+};
+
+// A pixel's 64 f32 channels are 16 chunks of 16 bytes; chunk q lies at
+// q ^ dsw(p): four consecutive pixels by two chunks on distinct banks.
+__device__ __forceinline__ int dsw(int p) { return (p & 3) << 1; }
+
+// Tile `tile`'s x halo ((8+2) x (16+2) pixels, channels c0 ..) and g (8 x 16
+// pixels, channels o0 ..) into the stage at dst: cp.async, zeros outside
+// the image and past the block's channels.
+__device__ __forceinline__ void dw_f32_copy(const DwF32Args& a, long tile,
+                                            int c0, int nc, int o0, int no,
+                                            uint32_t dst) {
+  const long r = tile / a.tiles_x;
+  const int tx = (int)(tile - r * a.tiles_x);
+  const int ty = (int)(r % a.tiles_y);
+  const size_t row0 = (size_t)(r / a.tiles_y) * a.H;
+  constexpr int NX = (D_TH + 2) * D_HW * 16, NG = D_TH * D_TW * 16;
+  for (int e = threadIdx.x; e < NX + NG; e += D_THREADS) {
+    const bool isx = e < NX;
+    const int f = isx ? e : e - NX;
+    const int p = f >> 4, q = f & 15;
+    const int cols = isx ? D_HW : D_TW, halo = isx ? 1 : 0;
+    const int hy = p / cols, hx = p - hy * cols;
+    const int yy = ty * D_TH + hy - halo, xx = tx * D_TW + hx - halo;
+    const bool in = yy >= 0 && yy < a.H && xx >= 0 && xx < a.W &&
+                    4 * q < (isx ? nc : no);
+    const float* src = isx ? a.x + ((row0 + yy) * a.W + xx) * a.Cin + c0
+                           : a.g + ((row0 + yy) * a.W + xx) * a.Cout + o0;
+    f2f::cp_async16(dst + (isx ? 0 : D_XH_BYTES) + p * 256 +
+                        ((q ^ dsw(p)) << 4),
+                    in ? src + 4 * q : a.x, in);
+  }
+}
+
+// Kernel B on f32 operands, Cin and Cout multiples of 8, on the tensor cores
+// in split f32: dW of the block's 64 input (blockIdx.y) by 64 output
+// channels (blockIdx.z) as a product with the pixels as k. A persistent
+// block walks 8 x 16 pixel tiles, two in flight (cp.async). dW of the block
+// is 18 units of (tap, 32 input channels: two m16 tiles) by two halves of
+// 32 output channels (four n8 tiles); warp w takes output half w / 6 and
+// units 3 (w % 6) .. + 3. One k8 step is 8 pixels of a tile row: a lane's
+// k = t and t + 4 are pixels t and t + 4, and one 16-byte load of a pixel
+// gives the lane four channels: input channels 4g .. 4g + 3 are rows g and
+// g + 8 of the two m tiles, output channels 4g + j column g of n tile j.
+__global__ void __launch_bounds__(D_THREADS, 1)
+dw_tc_k(const DwF32Args a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int c0 = blockIdx.y * 64, o0 = blockIdx.z * 64;
+  const int nc = min(64, a.Cin - c0), no = min(64, a.Cout - o0);
+  const int oh = warp / 6, u0 = 3 * (warp % 6);
+
+  float acc[3][2][4][4];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[i][mi][j][q] = 0.f;
+  int a_pix[3], a_ch[3];  // unit i: halo pixel of the tap, input chunk
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const int tap = (u0 + i) >> 1;
+    a_pix[i] = (tap / 3) * D_HW + tap % 3 + t;
+    a_ch[i] = 8 * ((u0 + i) & 1) + g;
+  }
+
+  const long ntiles = (long)a.B * a.tiles_y * a.tiles_x;
+  const uint32_t s0 = (uint32_t)__cvta_generic_to_shared(smem);
+  long tile = blockIdx.x;
+  if (tile < ntiles) dw_f32_copy(a, tile, c0, nc, o0, no, s0);
+  f2f::cp_async_commit();
+  for (int s = 0; tile < ntiles; tile += gridDim.x, s ^= 1) {
+    const long next = tile + gridDim.x;
+    if (next < ntiles)
+      dw_f32_copy(a, next, c0, nc, o0, no, s0 + (s ^ 1) * D_STAGE_BYTES);
+    f2f::cp_async_commit();
+    f2f::cp_async_wait<1>();  // this tile's copies have landed
+    __syncthreads();
+
+    const uint32_t xs = s0 + s * D_STAGE_BYTES, gs = xs + D_XH_BYTES;
+#pragma unroll 1
+    for (int ks = 0; ks < 2 * D_TH; ++ks) {
+      const int row = ks >> 1, px = 8 * (ks & 1);
+      Split bf[4][2];  // [n tile][fragment register]
+      {
+        const int p = row * D_TW + px + t;
+        const int off = ((8 * oh + g) ^ dsw(p)) << 4;
+        const float4 u = lds128(gs + p * 256 + off);
+        const float4 v = lds128(gs + (p + 4) * 256 + off);
+        bf[0][0] = split(u.x); bf[0][1] = split(v.x);
+        bf[1][0] = split(u.y); bf[1][1] = split(v.y);
+        bf[2][0] = split(u.z); bf[2][1] = split(v.z);
+        bf[3][0] = split(u.w); bf[3][1] = split(v.w);
+      }
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        const int p = row * D_HW + px + a_pix[i];
+        const int off = (a_ch[i] ^ dsw(p)) << 4;
+        const float4 u = lds128(xs + p * 256 + off);
+        const float4 v = lds128(xs + (p + 4) * 256 + off);
+        const Split af0[4] = {split(u.x), split(u.y), split(v.x), split(v.y)};
+        const Split af1[4] = {split(u.z), split(u.w), split(v.z), split(v.w)};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float d0[4] = {0.f, 0.f, 0.f, 0.f}, d1[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_split(d0, af0, bf[j]);
+          mma_split(d1, af1, bf[j]);
+          add4(acc[i][0][j], d0);
+          add4(acc[i][1][j], d1);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it refills
+  }
+
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const int tap = (u0 + i) >> 1, cu = 32 * ((u0 + i) & 1);
+    float* dst = a.partial + ((size_t)blockIdx.x * 9 + tap) * a.Cin * a.Cout;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int c = cu + 4 * g + 2 * mi + (q >> 1);
+          const int o = 32 * oh + 4 * (2 * t + (q & 1)) + j;
+          if (c < nc && o < no)
+            dst[(size_t)(c0 + c) * a.Cout + o0 + o] = acc[i][mi][j][q];
+        }
+  }
+}
+
+int launch_dw_tc(const float* x, const float* g, float* dw, float* partial,
+                 int max_blocks, int B, int H, int W, int Cin, int Cout,
+                 void* stream) {
+  static f2f::Resident resident;
+  const DwF32Args a = {x, g, partial, B, H, W, Cin, Cout,
+                       (H + D_TH - 1) / D_TH, (W + D_TW - 1) / D_TW};
+  int grid = 0;
+  int rc = f2f::persistent_grid(dw_tc_k, D_THREADS, D_SMEM_BYTES,
+                                (long)B * a.tiles_y * a.tiles_x, max_blocks,
+                                &resident, &grid);
+  if (rc != 0) return rc;
+  dw_tc_k<<<dim3(grid, (Cin + 63) / 64, (Cout + 63) / 64), D_THREADS,
+            D_SMEM_BYTES, (cudaStream_t)stream>>>(a);
+  if ((rc = (int)cudaGetLastError()) != 0) return rc;
+  return f2f::finish(partial, grid, 9 * Cin * Cout, dw, stream);
 }
 
 constexpr int M_WARPS = 12;
@@ -613,6 +1133,10 @@ int f2f_conv3x3(const float* x, const float* w, float* y, int B, int H, int W,
                 int Cin, int Cout, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 || B > 65535)
     return (int)cudaErrorInvalidValue;
+  // shape classes: the tensor cores where both channel counts are multiples
+  // of 8, f32 FMAs for the thin layers (1 -> 64, 64 -> 1) and odd counts
+  if (Cin % 8 == 0 && Cout % 8 == 0)
+    return launch_conv3x3_wg(x, w, y, B, H, W, Cin, Cout, stream);
   return Cout <= 8 ? launch_conv3x3<8, 2>(x, w, y, B, H, W, Cin, Cout, stream)
                    : launch_conv3x3<64, 8>(x, w, y, B, H, W, Cin, Cout,
                                            stream);
@@ -627,10 +1151,17 @@ int f2f_dw_conv3x3(const void* x, const void* g, int is_f32, float* dw,
   if (max_blocks <= 0 || B <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0
       || (Cin + B_CT - 1) / B_CT > 65535 || (Cout + B_CT - 1) / B_CT > 65535)
     return (int)cudaErrorInvalidValue;
-  return is_f32 ? launch_dw_f32(x, g, dw, partial, max_blocks, B, H, W,
-                                 Cin, Cout, stream)
-                : launch_dw_mma(x, g, dw, partial, max_blocks, B, H, W, Cin,
-                                Cout, stream);
+  if (!is_f32)
+    return launch_dw_mma(x, g, dw, partial, max_blocks, B, H, W, Cin, Cout,
+                         stream);
+  // shape classes: the tensor cores where both channel counts are multiples
+  // of 8, f32 FMAs for the thin layers (1 -> 64, 64 -> 1) and odd counts
+  return Cin % 8 == 0 && Cout % 8 == 0
+             ? launch_dw_tc(static_cast<const float*>(x),
+                            static_cast<const float*>(g), dw, partial,
+                            max_blocks, B, H, W, Cin, Cout, stream)
+             : launch_dw_fma(x, g, dw, partial, max_blocks, B, H, W, Cin,
+                             Cout, stream);
 }
 
 const char* f2f_error_string(int code) {

@@ -58,6 +58,30 @@ def _batched(t):
     return t[None] if t.dim() == 3 else t
 
 
+def cp_async_reads(f32, cin, cout):
+    """Which of (x, g) the kernels read from global memory in 16-byte
+    ``cp.async`` chunks (``csrc/conv3x3.cu``): on f32 operands both, in the
+    tensor-core bodies, where Cin and Cout are multiples of 8 (kernel A's x
+    in the same class); on bf16 operands each whose channel count is a
+    multiple of 8."""
+    if f32:
+        tc = cin % 8 == 0 and cout % 8 == 0
+        return tc, tc
+    return cin % 8 == 0, cout % 8 == 0
+
+
+def refuse_unaligned(name, *operands):
+    """Raise unless each tensor of ``operands`` starts on a 16-byte
+    boundary. ``.contiguous()`` leaves a contiguous view at an odd storage
+    offset as it is, and a ``cp.async`` from it faults on the card with a
+    sticky error that ends the process's CUDA context."""
+    for t in operands:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: an operand read in 16-byte chunks "
+                             f"starts {t.data_ptr() % 16} bytes past a "
+                             "16-byte boundary")
+
+
 @functools.cache
 def _lib():
     lib = load("conv3x3")
@@ -76,7 +100,9 @@ def dw_conv3x3(x, g):
     x: (H, W, Cin) or (B, H, W, Cin), the conv's input; g: the same with
     Cout, the cotangent of its output; both f32 or both bf16. Returns dW
     (3, 3, Cin, Cout) f32. Per-block partial sums are added in block order,
-    in double: the same inputs give the same bits."""
+    in double: the same inputs give the same bits. On the card an operand
+    read in 16-byte chunks (``cp_async_reads``) must start 16-byte aligned;
+    a view that does not raises."""
     xb, gb = _batched(x), _batched(g)
     if (xb.dim() != 4 or gb.dim() != 4 or xb.shape[:3] != gb.shape[:3]
             or not xb.numel() or not gb.numel()):
@@ -95,6 +121,9 @@ def dw_conv3x3(x, g):
     xb, gb = xb.contiguous(), gb.contiguous()
     B, H, W, cin = xb.shape
     cout = gb.shape[-1]
+    reads = cp_async_reads(xb.dtype == torch.float32, cin, cout)
+    refuse_unaligned("dw_conv3x3",
+                     *(t for t, r in zip((xb, gb), reads) if r))
     rows = _partial_rows(xb.device.index)
     dw = torch.empty(3, 3, cin, cout, dtype=torch.float32, device=xb.device)
     partial = torch.empty(rows, 9, cin, cout, dtype=torch.float32,

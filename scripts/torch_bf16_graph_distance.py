@@ -13,6 +13,10 @@ JAX package's f32 route as well. Prints one JSON object.
 
     JAX_PLATFORMS=cpu python scripts/torch_bf16_graph_distance.py --hw 135x240
 
+``--seed`` draws another texture and noise (default 3, ``chip_smoke.py``'s);
+one draw cannot tell which graph is closer when the two f32 routes lie as
+far apart as a bf16 distance, so compare several.
+
 It imports both packages, so it lives beside them and not in the port.
 """
 
@@ -32,13 +36,13 @@ CKPT = REPO / "results" / "dncnn17_s25" / "checkpoint.msgpack"
 ROUTES = ("xla", "packed_bf16")
 
 
-def frames(h, w, n):
+def frames(h, w, n, seed):
     """(clean, noisy, flows) of ``n`` frames of ``chip_smoke.moving_frames``
-    at h x w."""
+    at h x w, drawn from ``seed``."""
     import chip_smoke
 
     chip_smoke.H, chip_smoke.W = h, w
-    return chip_smoke.moving_frames(n)
+    return chip_smoke.moving_frames(n, seed)
 
 
 def run_jax(impl, noisy, flows, iters, frames_run):
@@ -89,13 +93,15 @@ def main(argv=None):
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--frames", type=int, default=2,
                     help="frames fine-tuned in a row, from frame 1")
+    ap.add_argument("--seed", type=int, default=3,
+                    help="seed of the texture and its noise (3: chip_smoke's)")
     args = ap.parse_args(argv)
     h, w = (int(v) for v in args.hw.split("x"))
 
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    clean, noisy, flows = frames(h, w, args.frames + 1)
+    clean, noisy, flows = frames(h, w, args.frames + 1, args.seed)
     frames_run = tuple(range(1, args.frames + 1))
     runs, secs = {}, {}
     for pkg, run in (("jax", run_jax), ("torch", run_torch)):
@@ -107,7 +113,8 @@ def main(argv=None):
             print(f"{pkg} {impl}: {secs[f'{pkg}/{impl}']:.1f} s", flush=True)
     from frame2frame_tpu_torch.utils.metrics import psnr
 
-    result = {"hw": [h, w], "iters": args.iters, "frames": list(frames_run),
+    result = {"hw": [h, w], "seed": args.seed, "iters": args.iters,
+              "frames": list(frames_run),
               "seconds": secs, "psnr_noisy": [psnr(clean[k], noisy[k])
                                               for k in frames_run]}
     for (pkg, impl), run in runs.items():

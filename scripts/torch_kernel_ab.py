@@ -1,4 +1,4 @@
-"""A/B timing of the port's mid-layer and weight-gradient kernels against
+"""A/B timing of the port's mid-layer and 3x3 conv kernels against
 another tree's (the parent commit's), on one card in one process.
 
     git archive <parent> | tar -x -C build/parent
@@ -8,7 +8,8 @@ Builds ``frame2frame_tpu_torch/csrc/{fused_stack,fused_stack_bwd,conv3x3}.cu``
 of both trees with the port's nvcc flags into ``build/ab/``, then times each
 kernel at 540x960 on bf16 operands with CUDA events in turns: parent,
 change, change, parent (the forward layers, also on the f32 chain,
-``bwd_layer`` and kernel B at 64->64, 1->64 and 64->1). ``bwd_layer``'s C interface changed from two
+``bwd_layer``, kernel B on bf16 and on f32 operands and kernel A on f32 at
+64->64, 1->64 and 64->1). ``bwd_layer``'s C interface changed from two
 kernels with a dz scratch to one kernel; the script calls each tree's own.
 Prints the card line and one JSON object. Needs a CUDA card and nvcc.
 """
@@ -84,6 +85,7 @@ def main(argv=None):
                        randn(C, scale=0.1)])
     out = torch.empty_like(z)
     zf, outf = z.float(), torch.empty_like(z, dtype=torch.float32)
+    gf, wf = g.float(), w.float()
     da, dz = torch.empty_like(z), torch.empty_like(z)
     stats = torch.empty(2 * C + 9 * C * C, device=dev)
     part = torch.empty(rows, 2 * C + 9 * C * C, device=dev)
@@ -107,6 +109,9 @@ def main(argv=None):
         dwk = libs[tag, "conv3x3"].f2f_dw_conv3x3
         dwk.restype = ci
         dwk.argtypes = [vp, vp, ci, vp, vp] + [ci] * 6 + [vp]
+        ka = libs[tag, "conv3x3"].f2f_conv3x3
+        ka.restype = ci
+        ka.argtypes = [vp, vp, vp] + [ci] * 5 + [vp]
         p = lambda t: t.data_ptr()  # noqa: E731
         args = (p(z), 0, p(w), p(s), p(b), p(out), 1, H, W, stream)
         args_f32 = (p(zf), 1, p(w), p(s), p(b), p(outf), 1, H, W, stream)
@@ -128,14 +133,22 @@ def main(argv=None):
                     p(g), p(zi), p(z), 0, p(w), p(vec), 0, p(da), p(stats),
                     p(part), rows, 1, H, W, stream))}
         for cin, cout in ((C, C), (1, C), (C, 1)):
-            x = z[..., :cin].contiguous()
-            gg = g[..., :cout].contiguous()
             dw = torch.empty(9 * cin * cout, device=dev)
             pdw = torch.empty(rows, 9 * cin * cout, device=dev)
-            out_calls[f"dw_conv3x3 {cin}->{cout}"] = (
-                lambda x=x, gg=gg, dw=dw, pdw=pdw, cin=cin, cout=cout: dwk(
-                    p(x), p(gg), 0, p(dw), p(pdw), rows, 1, H, W, cin, cout,
-                    stream))
+            for f32, (zz, gz) in enumerate(((z, g), (zf, gf))):
+                x = zz[..., :cin].contiguous()
+                gg = gz[..., :cout].contiguous()
+                out_calls[f"dw_conv3x3 {cin}->{cout}" + (" f32" if f32
+                                                          else "")] = (
+                    lambda x=x, gg=gg, dw=dw, pdw=pdw, cin=cin, cout=cout,
+                    f32=f32: dwk(p(x), p(gg), f32, p(dw), p(pdw), rows, 1, H,
+                                 W, cin, cout, stream))
+            x = zf[..., :cin].contiguous()
+            wc = wf[:, :, :cin, :cout].contiguous()
+            y = torch.empty(1, H, W, cout, device=dev)
+            out_calls[f"conv3x3 {cin}->{cout} f32"] = (
+                lambda x=x, wc=wc, y=y, cin=cin, cout=cout: ka(
+                    p(x), p(wc), p(y), 1, H, W, cin, cout, stream))
         return out_calls
 
     by_tag = {tag: calls(tag) for tag in trees}

@@ -215,3 +215,33 @@ def test_wrappers_validate_and_count_nothing_on_the_cpu():
         tdw.dw_conv3x3(t(x), t(g).to(torch.bfloat16))
     with pytest.raises(ValueError):
         tdw.dw_conv3x3(t(x), t(g)[:, :4])
+
+
+# (dtype, Cin, Cout, which of x and g the kernels read in 16-byte chunks):
+# the tensor-core bodies on f32, each vector operand on bf16, none on the
+# thin f32 layers
+CP_ASYNC_CASES = [("float32", 64, 64, (True, True)),
+                  ("float32", 80, 72, (True, True)),
+                  ("float32", 1, 64, (False, False)),
+                  ("float32", 64, 1, (False, False)),
+                  ("bfloat16", 64, 64, (True, True)),
+                  ("bfloat16", 1, 64, (False, True)),
+                  ("bfloat16", 64, 1, (True, False))]
+
+
+@pytest.mark.parametrize("dtype,cin,cout,reads", CP_ASYNC_CASES, ids=str)
+def test_unaligned_operands_are_refused_where_read_in_16_byte_chunks(
+        dtype, cin, cout, reads):
+    """A contiguous view one element into its storage is refused before a
+    launch wherever a kernel reads that operand with 16-byte cp.async, and
+    an aligned tensor passes."""
+    assert tdw.cp_async_reads(dtype == "float32", cin, cout) == reads
+    dt = getattr(torch, dtype)
+    for c in (cin, cout):
+        whole = torch.zeros(1 + 2 * 4 * 5 * c, dtype=dt)
+        view = whole[1:].view(2, 4, 5, c)
+        assert view.is_contiguous() and view.contiguous() is view
+        tdw.refuse_unaligned("op", whole[:-1].view(2, 4, 5, c))
+        with pytest.raises(ValueError, match="op: an operand read in "
+                           "16-byte chunks"):
+            tdw.refuse_unaligned("op", view)
