@@ -18,7 +18,10 @@ Phases, any failure exits non-zero:
    ``bwd_layer``, on bf16 channels-last);
    the four end kernels of the flat step (``first_conv``, ``last_loss_fwd``,
    ``last_loss_bwd``, ``first_dw``) the same way, one frame, with their
-   reductions run twice for equal bits;
+   reductions run twice for equal bits; ``last_loss_fwd`` also with
+   relu(b) > 0 in every channel (the zero border of the activation) at
+   540x960, 541x963, 1x1, 2x3 and 13x21 on both chains, and timed on the
+   f32 chain;
 4. the serving path: the pretrained DnCNN-17 (results/dncnn17_s25) loaded
    through the port, ``OnlineDenoiser.denoise_only`` and ``denoise_batch``
    (both routes) on four 540p synthetic noisy frames under the "affine" and
@@ -38,10 +41,15 @@ Phases, any failure exits non-zero:
    host-clock and device times of ``process_frame`` on both routes;
 6. the flow's inner loop (``tvl1_inner_loop``) against its plain version on
    inputs built the way the solver builds them: tiny and odd frames, frames
-   that are all border, 135x240 and 540x960, a batch of four pairs that stop
-   at different iterations, with 1, 30 and 300 iterations allowed: equal
-   iteration counts, outputs within 1e-5, the same bits on two runs; times
-   a launch and an iteration beside the cost of an empty grid barrier;
+   that are all border, every solved level of a 540p flow, 270x480 and
+   540x960, with 1, 30 and 300 iterations allowed, on the body that
+   ``cluster_plan`` gives the shape and on the cooperative body wherever
+   that is the cluster body; batches of four pairs that stop at different
+   iterations at 68x120 and 135x240, each pair equal to its launch alone:
+   equal iteration counts, the same bits as the plain loop and on two runs;
+   which body each shape takes; for every solved level of a 540p flow ms,
+   iterations and us an iteration (beside the cooperative body's), and the
+   cost of an empty cluster or grid barrier;
 7. the flow path: the golden pair (tests/golden) through the solver on the
    card against the reference binary's flows; a 540p flow with the denoising
    parameters on the kernel against the same solver on the plain loop, its
@@ -51,8 +59,9 @@ Phases, any failure exits non-zero:
    into a CUDA graph while the first frame is denoised, and replays it; the
    inner kernels that ran on the card are counted from the profiler's
    record, since a replay goes through no wrapper), the replayed solve
-   against the eager one, and the time of a flow alone and of a frame with
-   its flow prefetched on a second stream; Farneback's flow
+   against the eager one, and the time of a flow alone (with its inner
+   launches' device ms) and of a frame with its flow prefetched on a second
+   stream; Farneback's flow
    (``run_flows(ftype="cv2")``) of a clean 540p pair against the analytic
    flow and against the same solve on the CPU, with no kernel launched;
 8. the ``conv_impl`` routes' kernels (``ops/conv3x3.py`` kernel A,
@@ -92,6 +101,7 @@ context (``no_tf32``).
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
 import json
@@ -179,11 +189,6 @@ CONV_LAUNCHES = {
 BF16_GRAPH_LOSS_RTOL = 1.5e-2
 BF16_GRAPH_PSNR_TOL = 0.4  # dB
 STREAM_FRAMES = 5
-# the flow's inner loop against its plain version: the same f32 operations
-# in the same order and the error summed in double on both sides, so they
-# differ only if a stop decision does; 1e-5 px is ten f32 steps of a flow of
-# a pixel
-FLOW_INNER_ATOL = 1e-5
 # golden flows of the reference binary: the JAX package's own bounds
 # (tests/test_tvl1_golden.py)
 GOLDEN_MEAN_TOL, GOLDEN_MAX_TOL = 1e-5, 5e-4
@@ -199,7 +204,11 @@ FLOW_LAUNCHES_540P = 25  # 5 solved scales x 5 warps
 # Farneback's flow on the card against the same solve on the CPU, mean px:
 # the same plain ops, rounded in another order by the two devices' kernels
 FB_DEVICE_ATOL = 1e-3
-INNER_KERNEL = "tvl1_inner_k"  # the inner loop's kernel in a profiler record
+# the inner loop's kernels in a profiler record (the cooperative body
+# tvl1_inner_k, the cluster body tvl1_inner_cluster_k)
+INNER_KERNEL = "tvl1_inner_"
+# the solved levels of a 540p flow with DENOISING_PARAMS, finest first
+FLOW_LEVELS_540P = ((135, 240), (68, 120), (34, 60), (17, 30), (9, 15))
 # f32 operations a pixel and iteration of the inner loop (thresholding 13,
 # primal and error 15, dual 26)
 FLOW_OPS_PER_PIXEL = 54
@@ -684,6 +693,27 @@ def hold_end_kernels(torch, fe, tag, d, w_in, w_out):
     return errs, z1, noise
 
 
+def hold_last_fwd(torch, fe, tag, d, w_out):
+    """``last_loss_fwd`` with ``b`` drawn so that relu(b) > 0 in every
+    channel (SAME padding applies to a, not to z: a pixel outside the image
+    must give 0, not relu(b)) against its plain version with the kernel's
+    operand rounding, and the same bits on two runs. Returns the noise's
+    and the loss's (max |kernel - plain|, max |plain|)."""
+    s = d["vecs"][fe.E_S].contiguous()
+    b = (d["vecs"][fe.E_B].abs() + 0.05).contiguous()
+    args = (d["z"], s, b, w_out, d["aux_c"], d["aux_m"])
+    noise, loss = fe.last_loss_fwd(*args)
+    noise2, loss2 = fe.last_loss_fwd(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(noise, noise2) and torch.equal(loss, loss2),
+          f"{tag}: two runs on the same inputs differ")
+    noise_ref, loss_ref = fe.last_loss_fwd_plain(*args, mma_bf16=True)
+    check(bool(torch.isfinite(noise).all()) and bool(torch.isfinite(loss)),
+          f"{tag}: non-finite output")
+    return (hold_close(tag, "noise", noise, noise_ref, ENDS_F32_RTOL),
+            hold_close(tag, "loss", loss, loss_ref, ENDS_F32_RTOL))
+
+
 def ends_kernel_phase(torch, F, fe, cuda_time_ms):
     """The flat step's end kernels against their plain versions; returns the
     per-kernel rows."""
@@ -697,6 +727,13 @@ def ends_kernel_phase(torch, F, fe, cuda_time_ms):
             hold_end_kernels(torch, fe, f"end kernels {(h, wd)} {dt}",
                              ends_inputs(torch, rng, h, wd, dt), w_in, w_out)
     print("end kernel edge shapes: ok", flush=True)
+    for h, wd in ((H, W), (541, 963), (1, 1), (2, 3), (13, 21)):
+        for dt in (torch.bfloat16, torch.float32):
+            tag = f"last_loss_fwd {(h, wd)} {dt} relu(b) > 0"
+            (en, sn), (el, sl) = hold_last_fwd(
+                torch, fe, tag, ends_inputs(torch, rng, h, wd, dt), w_out)
+            print(f"{tag}: noise {en:.3e}/{sn:.3e}, loss {el:.3e}/{sl:.3e}, "
+                  "the same bits on two runs", flush=True)
 
     d = ends_inputs(torch, rng, H, W, torch.bfloat16)
     errs, z1, noise = hold_end_kernels(torch, fe, "end kernels 540p bf16", d,
@@ -782,6 +819,26 @@ def ends_kernel_phase(torch, F, fe, cuda_time_ms):
         print(f"kernel {name} B=1 bfloat16: err {err[0]:.3e} (plain max "
               f"{err[1]:.3e}) ms {ms:.4f} plain {plain_ms:.4f} library "
               f"{lib} bound {bms:.4f} ({by})", flush=True)
+
+    # last_loss_fwd on the f32 chain: 4 bytes an activation
+    d32 = ends_inputs(torch, rng, H, W, torch.float32)
+    s32, b32 = (d32["vecs"][k].contiguous() for k in (fe.E_S, fe.E_B))
+    (err32, scale32), _ = hold_last_fwd(torch, fe, "last_loss_fwd 540p f32",
+                                        d32, w_out)
+    args32 = (d32["z"], s32, b32, w_out, d32["aux_c"], d32["aux_m"])
+    ms = cuda_time_ms(lambda: fe.last_loss_fwd(*args32),
+                      head_start_cycles=HEAD_START_CYCLES)
+    plain_ms = cuda_time_ms(lambda: fe.last_loss_fwd_plain(
+        *args32, mma_bf16=True), iters=5)
+    bms, by = bound_ms(nbytes(*args32, noise) + 4, conv_flops)
+    rows["last_loss_fwd"].append({
+        "B": 1, "dtype": "float32", "max_abs_err": err32,
+        "max_abs_plain": scale32, "ms": ms, "plain_ms": plain_ms,
+        "library_ms": None, "bound_ms": bms, "bound_by": by})
+    print(f"kernel last_loss_fwd B=1 float32: err {err32:.3e} (plain max "
+          f"{scale32:.3e}) ms {ms:.4f} plain {plain_ms:.4f} library none "
+          f"bound {bms:.4f} ({by})", flush=True)
+    del d32, args32
     torch.cuda.empty_cache()
     return rows
 
@@ -831,9 +888,9 @@ def profile_call(torch, fn, iters=10, top=6, count=None):
     ending in a synchronize), then one torch.profiler pass over ``iters``
     calls: device kernel time per call, the device's busy share of the
     profiled wall time, the number of device kernels and of the library's
-    weight-gradient kernels among them per call (and, under ``counted``, of
-    the kernels whose name holds ``count``), and the kernels by device
-    time."""
+    weight-gradient kernels among them per call (and, under ``counted`` and
+    ``counted_ms``, the calls and device ms of the kernels whose name holds
+    ``count``), and the kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -861,6 +918,8 @@ def profile_call(torch, fn, iters=10, top=6, count=None):
             "device_kernels": sum(c for c, _ in kernels.values()) // iters,
             "library_wgrad_kernels": wgrad // iters,
             "counted": calls_of(kernels, count) / iters if count else None,
+            "counted_ms": (sum(t for n, (_, t) in kernels.items()
+                               if count in n) / iters if count else None),
             "top_kernels": [{"name": n, "calls": c // iters,
                              "ms": t / iters} for n, (c, t) in top]}
 
@@ -1301,16 +1360,39 @@ def flow_inner_inputs(torch, shape, shifts, seed, p_scale=0.0):
     return [x.contiguous() for x in (I1wx, I1wy, rho_c, grad, u1, u2, *ps)]
 
 
-def hold_inner_loop(torch, ti, tag, arrays, max_iters, epsilon=0.01):
-    """One launch of ``tvl1_inner_loop`` against its plain version: equal
-    iteration counts a pair, outputs within FLOW_INNER_ATOL, the same bits on
-    a second run. Returns (iterations a pair, max |kernel - plain|, max
-    |plain|)."""
+@contextlib.contextmanager
+def body_of(ti, plan):
+    """``tvl1_inner_loop`` on the body that ``plan`` gives (a cluster plan,
+    or None for the cooperative body) in place of the one ``cluster_plan``
+    gives the shape: how this script holds both bodies to the plain loop at
+    one shape. ``plan="shape"`` changes nothing."""
+    chosen = ti.cluster_plan
+    if plan != "shape":
+        ti.cluster_plan = lambda ny, nx: plan
+    try:
+        yield
+    finally:
+        ti.cluster_plan = chosen
+
+
+def hold_inner_loop(torch, ti, tag, arrays, max_iters, epsilon=0.01,
+                    plan="shape"):
+    """One launch of the flow's inner loop against its plain version: equal
+    iteration counts a pair, the same bits in every output, the same bits on
+    a second run. ``plan="shape"`` takes the body that ``cluster_plan``
+    gives the shape; a plan or ``None`` (the cooperative body) takes that
+    body (``body_of``). Returns (iterations a pair, max |kernel - plain|,
+    max |plain|)."""
     kw = dict(tau=0.25, lambda_=0.2, theta=0.3, epsilon=epsilon,
               max_iters=max_iters, return_iterations=True)
-    got, stats = ti.tvl1_inner_loop(*arrays, **kw)
+
+    def run():
+        with body_of(ti, plan):
+            return ti.tvl1_inner_loop(*arrays, **kw)
+
+    got, stats = run()
     torch.cuda.synchronize()
-    again, stats2 = ti.tvl1_inner_loop(*arrays, **kw)
+    again, stats2 = run()
     ref, stats_ref = ti.tvl1_inner_loop_plain(*arrays, **kw)
     n, n_ref = stats[:, 0].tolist(), stats_ref[:, 0].tolist()
     check(n == n_ref, f"{tag}: iterations kernel {n} plain {n_ref} (errors "
@@ -1324,15 +1406,34 @@ def hold_inner_loop(torch, ti, tag, arrays, max_iters, epsilon=0.01):
               and bool(torch.isfinite(g).all()),
               f"{tag} {name}: shape, dtype or non-finite output")
         e, sc = rel_err(g, r)
-        check(e <= FLOW_INNER_ATOL, f"{tag} {name}: max|kernel-plain| {e}")
+        check(torch.equal(g, r), f"{tag} {name}: max|kernel-plain| {e}, "
+              "not the same bits")
         err, scale = max(err, e), max(scale, sc)
+    check(torch.equal(stats, stats_ref), f"{tag}: last errors differ")
     return [int(x) for x in n], err, scale
+
+
+def inner_body(ti, shape):
+    """Which body of the inner loop ``cluster_plan`` gives a shape."""
+    plan = ti.cluster_plan(*shape)
+    if plan is None:
+        return "cooperative"
+    return f"cluster of {plan[0]} block(s) x {plan[1]} tile(s)"
 
 
 def flow_kernel_phase(torch, cuda_time_ms):
     """The flow's inner loop against its plain version; returns the
     kernel's rows."""
     from frame2frame_tpu_torch.flow import tvl1_inner as ti
+
+    # both bodies at every shape: the one cluster_plan gives it, and the
+    # cooperative one where that is the cluster body
+    def hold_bodies(tag, arrays, mi, shape):
+        out = hold_inner_loop(torch, ti, tag, arrays, mi)
+        if ti.cluster_plan(*shape) is not None:
+            hold_inner_loop(torch, ti, tag + " cooperative", arrays, mi,
+                            plan=None)
+        return out
 
     rng = np.random.default_rng(6)
     for shape in ((1, 1), (2, 3)):  # every pixel takes a border rule
@@ -1341,39 +1442,105 @@ def flow_kernel_phase(torch, cuda_time_ms):
                   for _ in range(10)]
         arrays[3] = arrays[0] ** 2 + arrays[1] ** 2
         for mi in (1, 30, 300):
-            hold_inner_loop(torch, ti, f"inner loop {shape} max_iters {mi}",
-                            arrays, mi)
+            hold_bodies(f"inner loop {shape} max_iters {mi}", arrays, mi,
+                        shape)
     seen = {}
-    for shape in ((9, 15), (17, 30), (13, 21), (135, 240), (H, W)):
+    shapes = ((9, 15), (17, 30), (13, 21), (34, 60), (68, 120), (135, 240),
+              (270, 480), (H, W))
+    for shape in shapes:
         arrays = flow_inner_inputs(torch, shape, [(1.3, -0.7)], seed=shape[0],
                                    p_scale=0.1)
         for mi in (1, 30, 300):
-            n, err, _ = hold_inner_loop(
-                torch, ti, f"inner loop {shape} max_iters {mi}", arrays, mi)
+            n, err, _ = hold_bodies(f"inner loop {shape} max_iters {mi}",
+                                    arrays, mi, shape)
             seen[shape, mi] = (n[0], err)
-    print("inner loop shapes (iterations, max|kernel-plain|): " + ", ".join(
-        f"{sh[0]}x{sh[1]}/{mi}: {n}, {e:.1e}"
-        for (sh, mi), (n, e) in seen.items()), flush=True)
+    print("inner loop bodies: " + ", ".join(
+        f"{sh[0]}x{sh[1]} {inner_body(ti, sh)}" for sh in shapes), flush=True)
+    print("inner loop shapes (iterations, max|kernel-plain|; both bodies "
+          "bit-equal to the plain loop): " + ", ".join(
+              f"{sh[0]}x{sh[1]}/{mi}: {n}, {e:.1e}"
+              for (sh, mi), (n, e) in seen.items()), flush=True)
     check(all(n == mi for (_, mi), (n, _) in seen.items() if mi == 1)
           and any(1 < n < 300 for (_, mi), (n, _) in seen.items() if mi == 300),
           "inner loop: no launch stopped on its error before max_iters")
 
     # a batch of four pairs that stop at different iterations, and each pair
-    # alone: the same bits whatever else is in the batch
+    # alone: the same bits whatever else is in the batch, on both bodies (the
+    # cooperative body's batch, per-pair stops and all, is what
+    # make_batched_tvl1 takes at levels of more than 144 tiles)
     shifts = [(0.2, 0.1), (2.5, -1.5), (1.0, 0.8), (0.0, 0.0)]
-    batch = flow_inner_inputs(torch, (68, 120), shifts, seed=7)
-    n, err, _ = hold_inner_loop(torch, ti, "inner loop P=4 68x120", batch, 300)
-    check(len(set(n)) > 2, f"inner loop P=4: pairs stopped alike, {n}")
     kw = dict(tau=0.25, lambda_=0.2, theta=0.3, epsilon=0.01, max_iters=300,
               return_iterations=True)
-    got, stats = ti.tvl1_inner_loop(*batch, **kw)
-    for q in range(len(shifts)):
-        alone, s = ti.tvl1_inner_loop(*(x[q] for x in batch), **kw)
-        check(torch.equal(s[0], stats[q])
-              and all(torch.equal(a, b[q]) for a, b in zip(alone, got)),
-              f"inner loop P=4: pair {q} differs from its launch alone")
-    print(f"inner loop P=4 68x120: iterations {n}, max|kernel-plain| "
-          f"{err:.1e}, each pair equal to its launch alone", flush=True)
+    for shape in ((68, 120), (135, 240)):
+        batch = flow_inner_inputs(torch, shape, shifts, seed=7)
+        for plan in ("shape", None):
+            body = inner_body(ti, shape) if plan == "shape" else "cooperative"
+            tag = f"inner loop P=4 {shape} {body}"
+            n, err, _ = hold_inner_loop(torch, ti, tag, batch, 300, plan=plan)
+            check(len(set(n)) > 2, f"{tag}: pairs stopped alike, {n}")
+            with body_of(ti, plan):
+                got, stats = ti.tvl1_inner_loop(*batch, **kw)
+                for q in range(len(shifts)):
+                    alone, s = ti.tvl1_inner_loop(*(x[q] for x in batch),
+                                                  **kw)
+                    check(torch.equal(s[0], stats[q])
+                          and all(torch.equal(a, b[q])
+                                  for a, b in zip(alone, got)),
+                          f"{tag}: pair {q} differs from its launch alone")
+            print(f"inner loop P=4 {shape[0]}x{shape[1]} ({body}): "
+                  f"iterations {n}, max|kernel-plain| {err:.1e}, each pair "
+                  "equal to its launch alone", flush=True)
+
+    def us_per_iteration(arrays, plan="shape"):
+        """(ms of 300 iterations, us an iteration from 300 and 100
+        iterations): epsilon 0, so that all of them run."""
+        kw = dict(tau=0.25, lambda_=0.2, theta=0.3, epsilon=0.0)
+
+        def run(mi):
+            return lambda: ti.tvl1_inner_loop(*arrays, max_iters=mi, **kw)
+
+        with body_of(ti, plan):
+            ms300 = cuda_time_ms(run(300), iters=10)
+            ms100 = cuda_time_ms(run(100), iters=10)
+        return ms300, (ms300 - ms100) / 200 * 1e3
+
+    # every solved level of a 540p flow: its body, iterations, ms and us an
+    # iteration, beside the cooperative body's and an empty barrier's
+    levels = {}
+    for shape in FLOW_LEVELS_540P:
+        ny, nx = shape
+        arrays = flow_inner_inputs(torch, shape, [(1.3, -0.7)], seed=ny,
+                                   p_scale=0.1)
+        plan = ti.cluster_plan(ny, nx)
+        n, _, _ = hold_inner_loop(torch, ti, f"inner loop level {shape}",
+                                  arrays, 300)
+        ms = cuda_time_ms(lambda: ti.tvl1_inner_loop(
+            *arrays, tau=0.25, lambda_=0.2, theta=0.3, epsilon=0.01,
+            max_iters=300), iters=10)
+        ms300, us = us_per_iteration(arrays)
+        level = {"body": inner_body(ti, shape), "plan": plan,
+                 "iterations": n[0], "ms": ms, "ms_300_iterations": ms300,
+                 "us_per_iteration": us}
+        if plan is None:
+            blocks = ti.launch_blocks(1, ny, nx)
+            level["grid_barrier_us"] = cuda_time_ms(
+                lambda: ti.grid_barrier_probe(blocks, 1000), iters=3)
+            barrier = f"empty grid barrier on {blocks} blocks " \
+                      f"{level['grid_barrier_us']:.3f} us"
+        else:
+            _, coop_us = us_per_iteration(arrays, plan=None)
+            level["cooperative_us_per_iteration"] = coop_us
+            threads = ti.cluster_threads(plan[1])
+            level["cluster_barrier_us"] = cuda_time_ms(
+                lambda: ti.cluster_barrier_probe(plan[0], threads, 1000),
+                iters=3)
+            barrier = f"cooperative body {coop_us:.3f} us an iteration; " \
+                      f"empty cluster barrier on {plan[0]} x {threads} " \
+                      f"threads {level['cluster_barrier_us']:.3f} us"
+        levels[f"{ny}x{nx}"] = level
+        print(f"inner loop level {ny}x{nx} ({level['body']}): {n[0]} "
+              f"iterations {ms:.4f} ms; 300 iterations {ms300:.4f} ms = "
+              f"{us:.3f} us each; {barrier}", flush=True)
 
     rows = []
     for shape in ((135, 240), (H, W)):
@@ -1405,6 +1572,7 @@ def flow_kernel_phase(torch, cuda_time_ms):
                            FLOW_OPS_PER_PIXEL * ny * nx * n[0],
                            F32_FLOP_PER_S)
         row = {"B": 1, "shape": [ny, nx], "dtype": "float32",
+               "body": inner_body(ti, shape),
                "iterations": n[0], "max_abs_err": err, "max_abs_plain": scale,
                "ms": ms, "plain_ms": plain_ms, "library_ms": None,
                "bound_ms": bms, "bound_by": by,
@@ -1414,13 +1582,15 @@ def flow_kernel_phase(torch, cuda_time_ms):
                "plain_ms_300_iterations": plain300,
                "blocks": blocks, "barrier_us": barrier_us,
                "barrier_floor_ms": n[0] * barrier_us / 1e3}
+        if shape == FLOW_LEVELS_540P[0]:
+            row["levels_540p"] = levels
         rows.append(row)
-        print(f"kernel tvl1_inner_loop {ny}x{nx} float32: {n[0]} iterations, "
-              f"err {err:.3e} (plain max {scale:.3e}) ms {ms:.4f} plain "
-              f"{plain_ms:.4f} library none bound {bms:.5f} ({by}); 300 "
-              f"iterations {ms300:.4f} ms = {ms300 / 0.3:.3f} us each (plain "
-              f"{plain300:.1f} ms); {blocks} blocks, empty grid barrier "
-              f"{barrier_us:.3f} us, {n[0]} barriers "
+        print(f"kernel tvl1_inner_loop {ny}x{nx} float32 ({row['body']}): "
+              f"{n[0]} iterations, err {err:.3e} (plain max {scale:.3e}) ms "
+              f"{ms:.4f} plain {plain_ms:.4f} library none bound {bms:.5f} "
+              f"({by}); 300 iterations {ms300:.4f} ms = {ms300 / 0.3:.3f} us "
+              f"each (plain {plain300:.1f} ms); {blocks} blocks, empty grid "
+              f"barrier {barrier_us:.3f} us, {n[0]} barriers "
               f"{n[0] * barrier_us / 1e3:.4f} ms", flush=True)
     torch.cuda.empty_cache()
     return {"tvl1_inner_loop": rows}
@@ -1649,6 +1819,10 @@ def flow_path_phase(torch, fs, psnr, variables, model, training):
     out["flow_alone"] = prof
     out["flow_alone_eager"] = eager
     print("flow 540p alone, graph replay: " + json.dumps(prof), flush=True)
+    print(f"flow 540p: its {FLOW_LAUNCHES_540P} inner launches take "
+          f"{prof['counted_ms']:.4f} device ms replayed, "
+          f"{eager['counted_ms']:.4f} launched one by one (profiler)",
+          flush=True)
     print("flow 540p alone, eager: " + json.dumps(eager), flush=True)
 
     # a frame of flow + fine-tune with the flow prefetched on its stream,
@@ -2255,8 +2429,14 @@ def main():
 
         rows = kernel_phase(torch, F, fs, cuda_time_ms)
         rows.update(train_kernel_phase(torch, F, fs, cuda_time_ms))
+        t0 = time.perf_counter()
         rows.update(ends_kernel_phase(torch, F, fe, cuda_time_ms))
+        print(f"phase time: end kernels {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        t0 = time.perf_counter()
         rows.update(flow_kernel_phase(torch, cuda_time_ms))
+        print(f"phase time: flow inner loop {time.perf_counter() - t0:.1f} s",
+              flush=True)
         t0 = time.perf_counter()
         rows.update(conv_kernel_phase(torch, F, cuda_time_ms))
         print(f"phase time: conv kernels {time.perf_counter() - t0:.1f} s",

@@ -9,7 +9,8 @@
 //   f2f_last_loss_fwd  a = relu(s * z_L + b); noise = conv3x3(a, w_out) in
 //     f32; loss = sum |aux_c - aux_m * noise|. Replaces last_loss_fwd
 //     (_last_fwd_kernel). The stored activation of the TPU kernel is not
-//     emitted: the backward rebuilds a from z_L.
+//     emitted: the backward rebuilds a from z_L. Its own tile and body, on
+//     the tensor cores: see last_fwd_k.
 //   f2f_last_loss_bwd  e = aux_m * sign(aux_c - aux_m * noise), sign(0) = 0,
 //     dL/dnoise = -e; g_L = conv3x3^T(-e, w_out), the cotangent of a;
 //     dW_out[t][c] = sum_p a[p + t][c] * -e[p]; and the last BatchNorm's
@@ -30,19 +31,45 @@
 // Bound at 540 x 960: K or N of these convolutions is 1, 0.6 GFLOP a
 // convolution, nothing against the bytes: one 64-channel activation is
 // 66.4 MB in bf16 (20 us at 3.35 TB/s). first_conv writes one, last_loss_fwd
-// reads one, last_loss_bwd reads one and writes one, first_dw reads two. So
-// the matrix unit stays idle: plain FMAs on operands in registers and shared
-// memory, every activation byte read once with 16-byte loads (a thread
-// keeps one 8-channel chunk of a pixel), several loads in flight a thread.
+// reads one, last_loss_bwd reads one and writes one, first_dw reads two.
+// So all four are bound by bytes: every activation byte read once with
+// 16-byte loads, several loads in flight a thread. first_conv,
+// last_loss_bwd and first_dw multiply on FMAs, with operands in registers
+// and shared memory (a thread keeps one 8-channel chunk of a pixel);
+// last_loss_fwd's products go to the tensor cores, where its FMAs left it
+// bound by its own instructions (below).
 //
-// A persistent block of 256 threads walks tiles of 8 x 32 pixels: thread =
-// (pixel column, 8-channel chunk), looping over the tile's rows. The
-// single-channel operand of a tile (x, or -e) lies in shared memory with a
-// one-pixel halo, zeros outside the image; its rows are not 16-byte aligned
-// for odd W, so it is loaded by scalars. last_loss_fwd turns the convolution
-// inside out: each pixel of the halo tile gives its nine tap products
-// sum_c a[c] * w[t][c] (eight threads a pixel, added by shuffles), and an
-// output pixel gathers one product from each of its nine neighbours.
+// first_conv, last_loss_bwd, first_dw: a persistent block of 256 threads
+// walks tiles of 8 x 32 pixels: thread = (pixel column, 8-channel chunk),
+// looping over the tile's rows. The single-channel operand of a tile (x, or
+// -e) lies in shared memory with a one-pixel halo, zeros outside the image;
+// its rows are not 16-byte aligned for odd W, so it is loaded by scalars.
+//
+// last_loss_fwd turns the convolution inside out: each pixel of the halo
+// tile gives its nine tap products q[p][t] = sum_c a[p][c] * w[t][c], and an
+// output pixel gathers one product from each of its nine neighbours. On FMAs
+// (8 x 32 tiles, eight threads a pixel, 72 FMAs, 27 shuffles, 9 selects a
+// pixel and chunk, the weights in registers so one block a multiprocessor)
+// it waited on its own instructions: 0.131 ms at 540 x 960 on an H100, 6x
+// its byte bound. The 64 -> 9 product of a pixel is a tensor core's shape:
+// q = A (16 halo pixels x 64) . W (64 x 16: taps 0-8, seven zero columns),
+// mma.sync m16n8k16 bf16 with f32 sums, two n8 fragments, four k steps.
+// Each lane feeds the A fragment from its own 32 (bf16) or 64 (f32)
+// contiguous bytes of a pixel: lane (g, t) of a group of 16 halo pixels
+// reads channels 16t .. 16t + 15 of pixels g and g + 8 with 16-byte loads
+// straight into registers, and the k index of the product is that
+// permutation of the channels (k = 16 kk + 2t + {0, 1, 8, 9} is channel
+// 16t + 4kk + {0, 1, 2, 3}); the weights' B fragments, built once a block,
+// take the same permutation. The affine, the ReLU and the bf16 rounding are
+// applied in registers, and a pixel outside the image gives a = 0 by its
+// position, not relu(b). Tiles of 16 x 64 outputs (an 18 x 66 halo, 1.16x
+// the activation where 8 x 32 read 1.33x); the products go to shared memory
+// tap-major, a tap's row 1220 floats apart (4 banks a tap apart: the
+// fragment stores are free of conflicts), and each output adds its nine in
+// tap order. Two blocks a multiprocessor; a warp keeps two groups' loads in
+// flight on the bf16 chain, one on the f32 chain (the same bytes). 0.044 ms
+// at 540 x 960 bf16 on an H100, 2.0x its byte bound; three groups in flight,
+// three blocks a multiprocessor and 16 x 32 tiles were no faster.
 //
 // Sums over the pixels (loss, dW, BatchNorm sums) are reduced without
 // atomics: a thread keeps its sums over all tiles of its block, the block
@@ -56,7 +83,7 @@ namespace {
 
 using namespace f2f;
 
-constexpr int ETH = 8;             // tile rows
+constexpr int ETH = 8;             // tile rows (not last_loss_fwd's)
 constexpr int ETW = 32;            // tile columns
 constexpr int EHH = ETH + 2;       // halo tile rows
 constexpr int EHW = ETW + 2;       // halo tile columns
@@ -65,7 +92,6 @@ constexpr int EWARPS = ETHREADS / 32;
 constexpr int BWD_SUMS = 11;       // last_loss_bwd: 9 dW taps, 2 BN sums
 constexpr unsigned FULL = 0xffffffffu;
 
-static_assert(ETH * ETW == ETHREADS, "last_loss_fwd: one output a thread");
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -165,105 +191,144 @@ first_conv_k(const T* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+// last_loss_fwd's tile: 16 x 64 outputs, an 18 x 66 halo in 75 groups of 16
+// pixels (the last one part padding), eight warps
+constexpr int LTH = 16, LTW = 64;
+constexpr int LHW = LTW + 2;
+constexpr int LHALO = (LTH + 2) * LHW;
+constexpr int LGROUPS = (LHALO + 15) / 16;
+constexpr int LQS = 1220;  // a tap's row of products: >= 16 * LGROUPS, 4 mod 32
+constexpr int LWARPS = ETHREADS / 32;
+
+static_assert(LQS >= 16 * LGROUPS && LQS % 32 == 4, "qs rows");
+static_assert(LTH * LTW % ETHREADS == 0, "whole outputs a thread");
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
 // z: (H, W, 64) T; s, b: 64 f32; w: (9, 64) f32; aux_c, aux_m, noise: (H, W)
-// f32; partial: one f32 a block.
+// f32; partial: one f32 a block. Tiles of LTH x LTW outputs.
 template <typename T>
-__global__ void __launch_bounds__(ETHREADS)
+__global__ void __launch_bounds__(ETHREADS, 2)
 last_fwd_k(const T* __restrict__ z, const float* __restrict__ s,
            const float* __restrict__ b, const float* __restrict__ w,
            const float* __restrict__ aux_c, const float* __restrict__ aux_m,
            float* __restrict__ noise, float* __restrict__ partial, int H,
            int W, int tiles_x, int ntiles) {
-  // qs[p * 9 + t]: halo pixel p's product with tap t, sum_c a[p][c] w[t][c]
-  __shared__ float qs[EHH * EHW * 9];
-  __shared__ float red[EWARPS];
-  const int tid = threadIdx.x, chunk = tid & 7;
-  // The weights stay in registers, 72 a thread, and a multiprocessor holds
-  // one block. Read from shared memory instead (128 registers, two blocks)
-  // the kernel took 0.149 ms in place of 0.131 ms at 540 x 960 on an H100:
-  // it waits on its own instructions, not on device memory.
-  float wr[9][8], ps[8], pb[8];
+  // qs[t * LQS + p]: halo pixel p's product with tap t
+  __shared__ float qs[9 * LQS];
+  __shared__ float red[LWARPS];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;  // the fragments' row and column
+  const int ch0 = 16 * t4;                 // this lane's channels
+  float ps[16], pb[16];
 #pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    ps[k] = s[chunk * 8 + k];
-    pb[k] = b[chunk * 8 + k];
-#pragma unroll
-    for (int t = 0; t < 9; ++t) wr[t][k] = round_bf16(w[t * C + chunk * 8 + k]);
+  for (int k = 0; k < 16; ++k) {
+    ps[k] = s[ch0 + k];
+    pb[k] = b[ch0 + k];
   }
+  // B fragments of W (k permuted as the A fragments): n fragment nf holds
+  // taps 8 nf .. 8 nf + 7; column g of it is tap 8 nf + g, zero past tap 8
+  uint32_t bw[4][2][2];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int nf = 0; nf < 2; ++nf) {
+      const int tap = 8 * nf + g;
+      const float* wt = w + tap * C + ch0 + 4 * kk;
+      bw[kk][nf][0] = tap < 9 ? pack_bf16x2(wt[0], wt[1]) : 0u;
+      bw[kk][nf][1] = tap < 9 ? pack_bf16x2(wt[2], wt[3]) : 0u;
+    }
   float loss = 0.f;
 
-  constexpr int NB = sizeof(T) == 2 ? 4 : 2;  // loads in flight a thread
-  constexpr int NTASK = (EHH * EHW * 8 + ETHREADS - 1) / ETHREADS;
-  constexpr int NIT = (NTASK + NB - 1) / NB * NB;
+  constexpr int NB = sizeof(T) == 2 ? 2 : 1;  // groups in flight a warp
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const int y0 = (tile / tiles_x) * ETH, x0 = (tile % tiles_x) * ETW;
+    const int y0 = (tile / tiles_x) * LTH, x0 = (tile % tiles_x) * LTW;
     __syncthreads();  // the previous tile's gather is done with qs
+    for (int g0 = warp; g0 < LGROUPS; g0 += LWARPS * NB) {
+      Chunk<T> raw[NB][2][2];  // group, pixel g / g + 8, channel half
+      bool inside[NB][2];
 #pragma unroll
-    for (int i0 = 0; i0 < NIT; i0 += NB) {
-      Chunk<T> raw[NB];
-      bool inside[NB];
+      for (int i = 0; i < NB; ++i)
 #pragma unroll
-      for (int i = 0; i < NB; ++i) {
-        const int p = (tid + (i0 + i) * ETHREADS) >> 3;
-        const int hy = p / EHW, hx = p - hy * EHW;
-        const int y = y0 + hy - 1, x = x0 + hx - 1;
-        inside[i] = p < EHH * EHW && y >= 0 && y < H && x >= 0 && x < W;
-        if (inside[i]) ldg(raw[i], z + ((size_t)y * W + x) * C + chunk * 8);
-      }
-#pragma unroll
-      for (int i = 0; i < NB; ++i) {
-        const int p = (tid + (i0 + i) * ETHREADS) >> 3;
-        float q[9];
-#pragma unroll
-        for (int t = 0; t < 9; ++t) q[t] = 0.f;
-        if (inside[i]) {  // zero padding of a: outside pixels give no product
-          float v[8];
-          unpack(raw[i], v);
-#pragma unroll
-          for (int k = 0; k < 8; ++k) {
-            const float a = round_bf16(fmaxf(affine(ps[k], v[k], pb[k]), 0.f));
-#pragma unroll
-            for (int t = 0; t < 9; ++t) q[t] = fmaf(a, wr[t][k], q[t]);
+        for (int h = 0; h < 2; ++h) {
+          const int p = (g0 + i * LWARPS) * 16 + g + 8 * h;
+          const int hy = p / LHW, hx = p - hy * LHW;
+          const int y = y0 + hy - 1, x = x0 + hx - 1;
+          inside[i][h] = g0 + i * LWARPS < LGROUPS && p < LHALO && y >= 0 &&
+                         y < H && x >= 0 && x < W;
+          if (inside[i][h]) {
+            const T* src = z + ((size_t)y * W + x) * C + ch0;
+            ldg(raw[i][h][0], src);
+            ldg(raw[i][h][1], src + 8);
           }
         }
-        // over the pixel's eight chunks: lanes that differ in bits 0..2
 #pragma unroll
-        for (int t = 0; t < 9; ++t) {
-          q[t] += __shfl_xor_sync(FULL, q[t], 1);
-          q[t] += __shfl_xor_sync(FULL, q[t], 2);
-          q[t] += __shfl_xor_sync(FULL, q[t], 4);
+      for (int i = 0; i < NB; ++i) {
+        const int grp = g0 + i * LWARPS;
+        if (grp >= LGROUPS) break;
+        // a = bf16(relu(s z + b)) of pixels g and g + 8 as A fragments; zero
+        // SAME padding of a: a pixel outside the image gives 0, not relu(b)
+        uint32_t af[2][8];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float v[16];
+          unpack(raw[i][h][0], v);
+          unpack(raw[i][h][1], v + 8);
+#pragma unroll
+          for (int k = 0; k < 16; ++k)
+            v[k] = inside[i][h] ? fmaxf(affine(ps[k], v[k], pb[k]), 0.f) : 0.f;
+#pragma unroll
+          for (int k = 0; k < 8; ++k)
+            af[h][k] = pack_bf16x2(v[2 * k], v[2 * k + 1]);
         }
-        if (p < EHH * EHW) {
-          float mine = q[0];
+        float q0[4] = {0.f, 0.f, 0.f, 0.f}, q1[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-          for (int t = 1; t < 8; ++t) mine = chunk == t ? q[t] : mine;
-          qs[p * 9 + chunk] = mine;
-          if (chunk == 0) qs[p * 9 + 8] = q[8];
+        for (int kk = 0; kk < 4; ++kk) {
+          // rows g, g + 8; k = 2 t4 + {0, 1} and 2 t4 + {8, 9} of step kk
+          const uint32_t a0 = af[0][2 * kk], a1 = af[1][2 * kk];
+          const uint32_t a2 = af[0][2 * kk + 1], a3 = af[1][2 * kk + 1];
+          mma_bf16(q0, a0, a1, a2, a3, bw[kk][0][0], bw[kk][0][1]);
+          mma_bf16(q1, a0, a1, a2, a3, bw[kk][1][0], bw[kk][1][1]);
+        }
+        const int p = grp * 16 + g;
+        qs[(2 * t4) * LQS + p] = q0[0];
+        qs[(2 * t4 + 1) * LQS + p] = q0[1];
+        qs[(2 * t4) * LQS + p + 8] = q0[2];
+        qs[(2 * t4 + 1) * LQS + p + 8] = q0[3];
+        if (t4 == 0) {
+          qs[8 * LQS + p] = q1[0];
+          qs[8 * LQS + p + 8] = q1[2];
         }
       }
     }
     __syncthreads();
-    const int py = tid / ETW, px = tid - py * ETW;
-    const int y = y0 + py, x = x0 + px;
-    if (y < H && x < W) {
-      float n = 0.f;
 #pragma unroll
-      for (int t = 0; t < 9; ++t)
-        n += qs[((py + t / 3) * EHW + px + t % 3) * 9 + t];
-      const size_t i = (size_t)y * W + x;
-      noise[i] = n;
-      loss += fabsf(__fsub_rn(aux_c[i], __fmul_rn(aux_m[i], n)));
+    for (int o = tid; o < LTH * LTW; o += ETHREADS) {
+      const int py = o / LTW, px = o - py * LTW;
+      const int y = y0 + py, x = x0 + px;
+      if (y < H && x < W) {
+        float n = 0.f;
+#pragma unroll
+        for (int t = 0; t < 9; ++t)
+          n += qs[t * LQS + (py + t / 3) * LHW + px + t % 3];
+        const size_t i = (size_t)y * W + x;
+        noise[i] = n;
+        loss += fabsf(__fsub_rn(aux_c[i], __fmul_rn(aux_m[i], n)));
+      }
     }
   }
 
 #pragma unroll
   for (int sh = 16; sh > 0; sh >>= 1) loss += __shfl_xor_sync(FULL, loss, sh);
-  if ((tid & 31) == 0) red[tid >> 5] = loss;
+  if (lane == 0) red[warp] = loss;
   __syncthreads();
   if (tid == 0) {
     float sum = 0.f;
 #pragma unroll
-    for (int wi = 0; wi < EWARPS; ++wi) sum += red[wi];
+    for (int wi = 0; wi < LWARPS; ++wi) sum += red[wi];
     partial[blockIdx.x] = sum;
   }
 }
@@ -457,7 +522,8 @@ int last_loss_fwd(const void* z, const float* s, const float* b,
                   int H, int W, void* stream) {
   static Resident resident;
   auto kern = last_fwd_k<T>;
-  const Tiles t = tiles_of(H, W);
+  const int tiles_x = (W + LTW - 1) / LTW;
+  const Tiles t = {tiles_x, tiles_x * ((H + LTH - 1) / LTH)};
   int grid = 0;
   int rc = ends_grid(kern, t, max_blocks, &resident, &grid);
   if (rc != 0) return rc;

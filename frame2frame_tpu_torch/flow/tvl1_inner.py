@@ -21,9 +21,14 @@ pair that has stopped no longer changes, and the loop ends when none is
 active. A pair's result does not depend on what else is in the batch.
 
 The TPU kernel holds all state in VMEM and therefore asks whether a scale
-fits (``vmem_fits``); the port's kernel keeps state in global memory and
-takes every size, so that function is not carried over. The kernel returns
-each pair's iteration count and last error, which the TPU kernel drops
+fits (``vmem_fits``). The port's kernel has two bodies and takes every size:
+``cluster_plan(ny, nx)``, a function of the shape alone, gives the cluster
+body (a pair's state in the shared memory of one thread-block cluster of up
+to 16 blocks) for levels of up to 144 tiles of 8 x 32 (every solved level
+of a 540p flow with the denoising parameters), and ``None`` for larger
+ones, which take the cooperative body (state in global memory, one grid
+barrier an iteration). Both give the same bits. The kernel returns each
+pair's iteration count and last error, which the TPU kernel drops
 (``return_iterations=True``; a device tensor, reading it is the caller's
 synchronisation).
 
@@ -55,6 +60,15 @@ from ..ops.grad import divergence, forward_gradient
 GRAD_IS_ZERO = 1e-10
 MAX_PAIRS = 512  # pairs a launch (csrc/tvl1_inner.cu MAXP)
 TILE_H, TILE_W = 8, 32
+# the cluster body (csrc/tvl1_inner.cu): at most 16 blocks a cluster and 9
+# tiles a block (one to three pixels a thread); shared memory of a block:
+# six f32 state planes of 9 tiles with a row and a column of halo each, 64
+# bytes, two doubles for each tile of the cluster (the partials) and eight
+# for each of the block's tiles (its row sums)
+MAX_CLUSTER = 16
+MAX_TILES_PER_BLOCK = 9
+STATE_SMEM = 6 * MAX_TILES_PER_BLOCK * (TILE_H * TILE_W + TILE_H + TILE_W) * 4
+HEAD_SMEM = 64
 NAMES = ("I1wx", "I1wy", "rho_c", "grad", "u1", "u2", "p11", "p12", "p21",
          "p22")
 
@@ -138,18 +152,69 @@ def tvl1_inner_loop_plain(I1wx, I1wy, rho_c, grad, u1, u2, p11, p12, p21,
     return out
 
 
+def cluster_plan(ny, nx):
+    """The cluster body's layout for an ``(ny, nx)`` level: ``(blocks,
+    tiles_per_block, smem_bytes)``, or ``None`` for a level of more than
+    144 tiles, which takes the cooperative body.
+
+    The level is cut into 8 x 32 tiles in raster order; block ``b`` of the
+    cluster owns the tiles ``[b * tiles_per_block, (b + 1) *
+    tiles_per_block)``. A level of up to 4 tiles is one block, a pixel a
+    thread, which exchanges nothing; a larger one is spread over as many
+    blocks as the cluster takes (16), with the fewest tiles each. Whole
+    tiles in raster order, not bands of whole tile rows: 135 x 240 has 17
+    tile rows, which 16 blocks take no finer than two rows (16 tiles) a
+    block, where a raster split gives each at most 9. (Measured on an H100,
+    ``chip_smoke.py``: an iteration costs 1.4 us in one block at 9 x 15,
+    1.5 us on 10 blocks at 34 x 60, 2.1 us on 12 blocks of 3 tiles at
+    68 x 120 and 4.2 us on 16 blocks of 9 at 135 x 240, where the
+    cooperative body takes 4.5-5.5 us at every level.)"""
+    tiles = -(-ny // TILE_H) * -(-nx // TILE_W)
+    if tiles <= 4:
+        return 1, tiles, cluster_smem(1, tiles)
+    per = -(-tiles // MAX_CLUSTER)
+    if per > MAX_TILES_PER_BLOCK:
+        return None
+    blocks = -(-tiles // per)
+    return blocks, per, cluster_smem(blocks, per)
+
+
+def cluster_smem(blocks, tiles_per_block):
+    """Bytes of shared memory a block of the cluster body takes (as
+    ``f2f_tvl1_cluster`` reckons it)."""
+    return (STATE_SMEM + HEAD_SMEM + 16 * blocks * tiles_per_block
+            + 8 * TILE_H * tiles_per_block)
+
+
 @functools.cache
 def _lib():
     lib = load("tvl1_inner")
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.f2f_tvl1_inner.argtypes = ([vp] * 6 + [ci] * 3 + [cf] * 4 + [ci, vp])
+    lib.f2f_tvl1_cluster.argtypes = ([vp] * 4 + [ci] * 5 + [cf] * 4
+                                     + [ci, vp])
     lib.f2f_tvl1_inner_blocks.argtypes = [ci] * 3
     lib.f2f_tvl1_barrier_probe.argtypes = [ci, ci, vp]
-    for fn in (lib.f2f_tvl1_inner, lib.f2f_tvl1_inner_blocks,
-               lib.f2f_tvl1_barrier_probe):
+    lib.f2f_tvl1_cluster_probe.argtypes = [ci, ci, ci, vp]
+    lib.f2f_tvl1_cluster_check.argtypes = [ci, ci]
+    lib.f2f_tvl1_cluster_probe_check.argtypes = [ci, ci]
+    for fn in (lib.f2f_tvl1_inner, lib.f2f_tvl1_cluster,
+               lib.f2f_tvl1_inner_blocks, lib.f2f_tvl1_barrier_probe,
+               lib.f2f_tvl1_cluster_probe, lib.f2f_tvl1_cluster_check,
+               lib.f2f_tvl1_cluster_probe_check):
         fn.restype = ci
     _bind_error_string(lib)
     return lib
+
+
+@functools.cache
+def _cluster_taken(check, device, *shape):
+    """Raise unless the current device, ``device``, takes the cluster that
+    ``check`` (``f2f_tvl1_cluster_check`` or ``..._probe_check``) asks about
+    for ``shape``; asked once a device and shape, before its first launch.
+    A refusal is not cached: it raises again on the next launch."""
+    lib = _lib()
+    _raise_on(lib, "tvl1_inner_loop", getattr(lib, check)(*shape))
 
 
 def _pointers(tensors):
@@ -166,7 +231,9 @@ def tvl1_inner_loop(I1wx, I1wy, rho_c, grad, u1, u2, p11, p12, p21, p22,
     (the inputs are not written), and with ``return_iterations`` also a
     ``(P, 2)`` f32 tensor of each pair's iterations run and last error. The
     error sum is reduced in a fixed order: the same inputs give the same
-    bits, whatever else is in the batch."""
+    bits, whatever else is in the batch and whichever body runs. The body is
+    the one ``cluster_plan`` gives the shape: the cluster body for a plan,
+    the cooperative body for ``None``."""
     name = "tvl1_inner_loop"
     arrays = (I1wx, I1wy, rho_c, grad, u1, u2, p11, p12, p21, p22)
     if u1.dim() not in (2, 3) or not u1.numel():
@@ -190,23 +257,32 @@ def tvl1_inner_loop(I1wx, I1wy, rho_c, grad, u1, u2, p11, p12, p21, p22,
     P, ny, nx = arrays[0].shape
     l_t, taut, theta, eps2 = _scalars(tau, lambda_, theta, epsilon)
     tiles = -(-ny // TILE_H) * -(-nx // TILE_W)
+    plan = cluster_plan(ny, nx)
     out = torch.empty(6, P, ny, nx, dtype=torch.float32, device=dev)
-    tmp = torch.empty_like(out)
+    tmp = None if plan else torch.empty_like(out)
     stats = torch.empty(P, 2, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream().cuda_stream
     # more pairs than a launch takes go in chunks; a pair's result does not
     # depend on its chunk
     for lo in range(0, P, MAX_PAIRS):
         hi = min(lo + MAX_PAIRS, P)
-        partial = torch.empty(2, hi - lo, tiles, dtype=torch.float64,
-                              device=dev)
-        rc = lib.f2f_tvl1_inner(
-            _pointers([x[lo:hi] for x in arrays[:4]]),
-            _pointers([x[lo:hi] for x in arrays[4:]]),
-            _pointers([out[k, lo:hi] for k in range(6)]),
-            _pointers([tmp[k, lo:hi] for k in range(6)]),
-            partial.data_ptr(), stats[lo:hi].data_ptr(), hi - lo, ny, nx,
-            l_t, taut, theta, eps2, int(max_iters), stream)
+        fixed = _pointers([x[lo:hi] for x in arrays[:4]])
+        state = _pointers([x[lo:hi] for x in arrays[4:]])
+        outs = _pointers([out[k, lo:hi] for k in range(6)])
+        if plan:
+            blocks, per, _ = plan
+            _cluster_taken("f2f_tvl1_cluster_check", dev.index, blocks, per)
+            rc = lib.f2f_tvl1_cluster(
+                fixed, state, outs, stats[lo:hi].data_ptr(), hi - lo, ny, nx,
+                blocks, per, l_t, taut, theta, eps2, int(max_iters), stream)
+        else:
+            partial = torch.empty(2, hi - lo, tiles, dtype=torch.float64,
+                                  device=dev)
+            rc = lib.f2f_tvl1_inner(
+                fixed, state, outs,
+                _pointers([tmp[k, lo:hi] for k in range(6)]),
+                partial.data_ptr(), stats[lo:hi].data_ptr(), hi - lo, ny, nx,
+                l_t, taut, theta, eps2, int(max_iters), stream)
         _raise_on(lib, name, rc)
         # a stream that records a CUDA graph takes the launch down and runs
         # nothing: only a launch that runs is counted
@@ -220,9 +296,17 @@ tvl1_inner_loop.launches = 0
 
 
 def launch_blocks(P, ny, nx):
-    """Blocks that a launch for ``P`` pairs of ``(ny, nx)`` takes on the
-    current CUDA device."""
+    """Blocks that a launch of the cooperative body for ``P`` pairs of
+    ``(ny, nx)`` takes on the current CUDA device."""
     return _lib().f2f_tvl1_inner_blocks(P, ny, nx)
+
+
+def cluster_threads(tiles_per_block):
+    """Threads a block of the cluster body takes for a plan's
+    ``tiles_per_block`` (as ``f2f_tvl1_cluster`` reckons them): one to three
+    pixels a thread, at most four tiles' threads."""
+    px = -(-tiles_per_block // 4)
+    return TILE_H * TILE_W * -(-tiles_per_block // px)
 
 
 def grid_barrier_probe(blocks, syncs):
@@ -233,3 +317,17 @@ def grid_barrier_probe(blocks, syncs):
     rc = lib.f2f_tvl1_barrier_probe(
         int(blocks), int(syncs), torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, "grid_barrier_probe", rc)
+
+
+def cluster_barrier_probe(blocks, threads, syncs):
+    """Launch one cluster of ``blocks`` blocks of ``threads`` threads that
+    does ``syncs`` cluster barriers and nothing else: what an iteration would
+    pay for each cluster barrier at the cluster body's shape, which the body
+    avoids in its loop (it has one, at set-up)."""
+    lib = _lib()
+    _cluster_taken("f2f_tvl1_cluster_probe_check",
+                   torch.cuda.current_device(), int(blocks), int(threads))
+    rc = lib.f2f_tvl1_cluster_probe(
+        int(blocks), int(threads), int(syncs),
+        torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, "cluster_barrier_probe", rc)

@@ -1,17 +1,23 @@
-"""A/B timing of the port's mid-layer and 3x3 conv kernels against
-another tree's (the parent commit's), on one card in one process.
+"""A/B timing of the port's kernels against another tree's (the parent
+commit's), on one card in one process.
 
     git archive <parent> | tar -x -C build/parent
     python3 scripts/torch_kernel_ab.py --parent build/parent
 
-Builds ``frame2frame_tpu_torch/csrc/{fused_stack,fused_stack_bwd,conv3x3}.cu``
-of both trees with the port's nvcc flags into ``build/ab/``, then times each
-kernel at 540x960 on bf16 operands with CUDA events in turns: parent,
-change, change, parent (the forward layers, also on the f32 chain,
-``bwd_layer``, kernel B on bf16 and on f32 operands and kernel A on f32 at
-64->64, 1->64 and 64->1). ``bwd_layer``'s C interface changed from two
-kernels with a dz scratch to one kernel; the script calls each tree's own.
-Prints the card line and one JSON object. Needs a CUDA card and nvcc.
+Builds ``frame2frame_tpu_torch/csrc/{fused_stack,fused_stack_bwd,conv3x3,
+fused_ends,tvl1_inner}.cu`` of both trees with the port's nvcc flags into
+``build/ab/``, then times each kernel with CUDA events in turns: parent,
+change, change, parent. At 540x960 on bf16 operands: the forward layers,
+also on the f32 chain, ``bwd_layer``, kernel B on bf16 and on f32 operands,
+kernel A on f32 at 64->64, 1->64 and 64->1, and ``last_loss_fwd`` on both
+chains (after a head start of the device, as the kernel is shorter than
+its call). The flow's inner loop at 135x240 and 68x120 (smooth
+synthetic inputs, epsilon 0.01, up to 300 iterations): each tree's own
+body, which the change's ``cluster_plan`` picks by shape and the parent
+does not have (it has the cooperative body only). ``bwd_layer``'s C
+interface changed from two kernels with a dz scratch to one kernel; the
+script calls each tree's own. Prints the card line and one JSON object.
+Needs a CUDA card and nvcc.
 """
 
 from __future__ import annotations
@@ -26,7 +32,9 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
-SOURCES = ("fused_stack", "fused_stack_bwd", "conv3x3")
+SOURCES = ("fused_stack", "fused_stack_bwd", "conv3x3", "fused_ends",
+           "tvl1_inner")
+FLOW_SHAPES = ((135, 240), (68, 120))
 H, W, C = 540, 960, 64
 
 
@@ -52,6 +60,7 @@ def main(argv=None):
 
     import torch
 
+    from frame2frame_tpu_torch.flow.tvl1_inner import _scalars, cluster_plan
     from frame2frame_tpu_torch.utils.timer import cuda_time_ms
 
     if not torch.cuda.is_available():
@@ -73,7 +82,7 @@ def main(argv=None):
 
     rows = 2 * torch.cuda.get_device_properties(0).multi_processor_count
     stream = torch.cuda.current_stream().cuda_stream
-    vp, ci = ctypes.c_void_p, ctypes.c_int
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     z = randn(1, H, W, C).bfloat16()
     zi, g = randn(1, H, W, C).bfloat16(), randn(1, H, W, C, scale=0.1).bfloat16()
     w = randn(3, 3, C, C, scale=0.05).bfloat16()
@@ -90,6 +99,32 @@ def main(argv=None):
     stats = torch.empty(2 * C + 9 * C * C, device=dev)
     part = torch.empty(rows, 2 * C + 9 * C * C, device=dev)
     part_stats = torch.empty(rows, 2 * C, device=dev)
+    # last_loss_fwd: z on both chains, the last BatchNorm's affine, the
+    # output weights and the loss constants of one frame
+    mask = (torch.rand(H, W, device=dev, generator=gen) > 0.1).float()
+    aux_c = mask * torch.rand(H, W, device=dev, generator=gen)
+    w_out = randn(3, 3, C, 1, scale=0.06)
+    noise = torch.empty(H, W, device=dev)
+    loss = torch.empty((), device=dev)
+    part_loss = torch.empty(rows, device=dev)
+
+    def flow_inputs(ny, nx):
+        """The ten arrays of the inner loop, smooth as the solver's are."""
+        yy, xx = torch.meshgrid(torch.arange(ny, device=dev),
+                                torch.arange(nx, device=dev), indexing="ij")
+        yy, xx = yy.float(), xx.float()
+        ix = 20 * torch.cos(0.31 * xx + 0.17 * yy)
+        iy = 15 * torch.sin(0.23 * yy - 0.05 * xx)
+        u1 = 0.6 + 0.2 * torch.randn(ny, nx, device=dev, generator=gen)
+        u2 = -0.3 + 0.2 * torch.randn(ny, nx, device=dev, generator=gen)
+        rho_c = 3 * torch.sin(0.11 * xx) - ix * u1 - iy * u2
+        ps = [0.1 * torch.randn(ny, nx, device=dev, generator=gen)
+              for _ in range(4)]
+        return [x.contiguous() for x in (ix, iy, rho_c, ix * ix + iy * iy,
+                                         u1, u2, *ps)]
+
+    flows = {shape: flow_inputs(*shape) for shape in FLOW_SHAPES}
+    l_t, taut, theta, eps2 = _scalars(0.25, 0.2, 0.3, 0.01)
 
     def calls(tag):
         """{case: function} of one tree's kernels."""
@@ -149,21 +184,70 @@ def main(argv=None):
             out_calls[f"conv3x3 {cin}->{cout} f32"] = (
                 lambda x=x, wc=wc, y=y, cin=cin, cout=cout: ka(
                     p(x), p(wc), p(y), 1, H, W, cin, cout, stream))
+        fe = libs[tag, "fused_ends"].f2f_last_loss_fwd
+        fe.restype = ci
+        fe.argtypes = [vp, ci] + [vp] * 8 + [ci] * 3 + [vp]
+        for f32, zz in enumerate((z, zf)):
+            out_calls["last_loss_fwd" + (" f32" if f32 else "")] = (
+                lambda zz=zz, f32=f32: fe(
+                    p(zz), f32, p(s), p(b), p(w_out), p(aux_c), p(mask),
+                    p(noise), p(loss), p(part_loss), rows, H, W, stream))
+        tv = libs[tag, "tvl1_inner"]
+        tv.f2f_tvl1_inner.restype = ci
+        tv.f2f_tvl1_inner.argtypes = [vp] * 6 + [ci] * 3 + [cf] * 4 + [ci, vp]
+        has_cluster = hasattr(tv, "f2f_tvl1_cluster")
+        if has_cluster:
+            tv.f2f_tvl1_cluster.restype = ci
+            tv.f2f_tvl1_cluster.argtypes = ([vp] * 4 + [ci] * 5 + [cf] * 4
+                                            + [ci, vp])
+            tv.f2f_tvl1_cluster_check.restype = ci
+            tv.f2f_tvl1_cluster_check.argtypes = [ci, ci]
+        for (ny, nx), arrays in flows.items():
+            ptrs = lambda xs: (vp * len(xs))(*(x.data_ptr() for x in xs))  # noqa: E731
+            fout = [torch.empty(ny, nx, device=dev) for _ in range(6)]
+            ftmp = [torch.empty(ny, nx, device=dev) for _ in range(6)]
+            tiles = -(-ny // 8) * -(-nx // 32)
+            partial = torch.empty(2, tiles, dtype=torch.float64, device=dev)
+            stats_f = torch.empty(1, 2, device=dev)
+            plan = cluster_plan(ny, nx) if has_cluster else None
+            fixed, state, outs = (ptrs(arrays[:4]), ptrs(arrays[4:]),
+                                  ptrs(fout))
+            if plan:
+                # the shape is allowed and checked once before its launches,
+                # as the wrapper does
+                rc = tv.f2f_tvl1_cluster_check(plan[0], plan[1])
+                if rc:
+                    raise RuntimeError(f"cluster refused: cudaError {rc}")
+                call = (lambda fixed=fixed, state=state, outs=outs,
+                        stats_f=stats_f, ny=ny, nx=nx, plan=plan:
+                        tv.f2f_tvl1_cluster(
+                            fixed, state, outs, p(stats_f), 1, ny, nx,
+                            plan[0], plan[1], l_t, taut, theta, eps2, 300,
+                            stream))
+            else:
+                call = (lambda fixed=fixed, state=state, outs=outs,
+                        tmpp=ptrs(ftmp), partial=partial, stats_f=stats_f,
+                        ny=ny, nx=nx: tv.f2f_tvl1_inner(
+                            fixed, state, outs, tmpp, p(partial), p(stats_f),
+                            1, ny, nx, l_t, taut, theta, eps2, 300, stream))
+            out_calls[f"tvl1_inner_loop {ny}x{nx}"] = call
         return out_calls
 
     by_tag = {tag: calls(tag) for tag in trees}
 
-    def timed(fn):
+    def timed(fn, head_start=False):
         def run():
             rc = fn()
             if rc:
                 raise RuntimeError(f"launch failed: cudaError {rc}")
-        return cuda_time_ms(run, iters=50)
+        return cuda_time_ms(run, iters=50,
+                            head_start_cycles=5_000_000 if head_start else 0)
 
     result = {"card": card, "hw": [H, W], "ms": {}}
     for case in by_tag["change"]:
         order = ("parent", "change", "change", "parent")
-        times = [timed(by_tag[tag][case]) for tag in order]
+        times = [timed(by_tag[tag][case], case.startswith("last_loss_fwd"))
+                 for tag in order]
         result["ms"][case] = {"parent": [times[0], times[3]],
                               "change": [times[1], times[2]]}
         print(f"{case}: parent {times[0]:.4f} {times[3]:.4f} change "
