@@ -68,14 +68,18 @@ Phases, any failure exits non-zero:
    ``ops/conv_dw.py`` kernel B): the port's library convolution against
    float64 under PyTorch's default TF32 flags (the script sets none), and
    A and B on f32 operands (split-f32 products on the tensor cores) against
-   float64 on the same 64x96 inputs; A and B against their plain versions
-   at edge shapes (1->64, 64->64, 64->1, 3->64, 8->8 at 13x21, B=2, more
-   than 64 channels) and at 540x960 64->64, 1->64 and 64->1 (B on f32 and
-   bf16 operands), within 1e-5 of the largest plain value, B's bits on two
-   runs; ``conv3x3_p2`` and ``conv3x3_dwflat`` once each; times beside the
-   bound of the body that ran (and the f32 FMA bound), the plain version
-   and a library call (``F.conv2d``, ``aten.convolution_backward``
-   weight-only, with TF32 off);
+   float64 on the same 64x96 inputs; the body that the C dispatch picks
+   against the wrappers' rule (``conv_dw.conv_body``), and a misaligned view
+   refused for every operand read in 16-byte chunks; A and B against their
+   plain versions at edge shapes (``CONV_EDGE_SHAPES``: every body of each,
+   the thin class at 1->64, 64->1, 3->64, 64->3, batches and 541x963) and
+   at 540x960 64->64, 1->64 and 64->1 (B on f32 and bf16 operands), within
+   1e-5 of the largest plain value, B's bits on two runs, the body that ran
+   on each line; ``conv3x3_p2`` and ``conv3x3_dwflat`` once each; times
+   (behind a head start of the device) beside the bound of the body that
+   ran (and the f32 FMA bound), the plain version and a library call
+   (``F.conv2d``, ``aten.convolution_backward`` weight-only, with TF32
+   off);
 9. the ``conv_impl`` routes of the pretrained DnCNN-17 ("pallas", "hybrid",
    "bf16res", "packed_bf16"): one step's gradients on the kernels against
    the plain versions' backward from the same forward; two 540p frames
@@ -1905,6 +1909,21 @@ def farneback_phase(torch, fs):
     return out
 
 
+# kernels A and B at shapes that leave partial tiles, strips and runs: every
+# body of each (the tensor cores at 64->64, 8->8, 64->16, 80->72; the thin
+# class at n->64 and 64->n for grayscale and colour, batches, a ragged
+# 541x963, wide sides that are not multiples of 4 or exceed 64; f32 FMAs at
+# 12->20 and 20->6)
+CONV_EDGE_SHAPES = (
+    (1, 13, 21, 1, 64), (2, 13, 21, 64, 64), (1, 13, 21, 64, 1),
+    (2, 13, 21, 3, 64), (2, 13, 21, 64, 3), (4, 13, 21, 1, 64),
+    (4, 13, 21, 64, 1), (1, 541, 963, 1, 64), (1, 541, 963, 64, 1),
+    (1, 13, 21, 2, 70), (1, 13, 21, 70, 3), (1, 1, 1, 1, 64),
+    (1, 1, 1, 64, 1), (2, 13, 21, 12, 20), (1, 13, 21, 20, 6),
+    (2, 13, 21, 8, 8), (1, 1, 1, 64, 64), (1, 37, 50, 64, 16),
+    (1, 9, 20, 80, 72))
+
+
 def conv_inputs(torch, rng, B, h, wd, cin, cout):
     """x (B, h, wd, cin), HWIO weights scaled to unit output variance, and a
     cotangent (B, h, wd, cout), f32 on the card."""
@@ -1978,32 +1997,65 @@ def conv_kernel_phase(torch, F, cuda_time_ms):
               f"{lib[what][0] / lib[what][1]:.3e})", flush=True)
         check(err <= CONV_RTOL * scale, f"{name} f32: {err / scale} off "
               "float64, not an f32 product")
-    # a contiguous view at an odd offset is refused before a launch: the
-    # tensor-core bodies read x and g with 16-byte cp.async
-    flat = torch.zeros(1 + x.numel(), device="cuda")
-    odd = flat[1:].view(x.shape)
-    for fn, args in ((c3.conv3x3_fwd, (odd, w)), (cdw.dw_conv3x3, (odd, g))):
-        launches = fn.launches
-        try:
-            fn(*args)
-            check(False, f"{fn.__name__}: a view 4 bytes off a 16-byte "
-                  "boundary was launched")
-        except ValueError:
-            pass
-        check(fn.launches == launches, f"{fn.__name__}: counted a launch "
-              "it refused")
-    torch.cuda.synchronize()
-    print("conv kernels: unaligned f32 views refused", flush=True)
+    # the body that the C dispatch runs (f2f_conv3x3_body) is the one that
+    # the wrappers' rule names (conv_dw.conv_body, which cp_async_reads and
+    # so the alignment checks read)
+    def body(kernel_b, f32, cin, cout):
+        code = cdw._lib().f2f_conv3x3_body(int(kernel_b), int(f32), cin, cout)
+        name = cdw.BODIES[code]
+        check(name == cdw.conv_body(f32, cin, cout),
+              f"{'B' if kernel_b else 'A'} {cin}->{cout} f32={f32}: C runs "
+              f"{name}, conv_body says {cdw.conv_body(f32, cin, cout)}")
+        return name
 
-    for B, h, wd, cin, cout in ((1, 13, 21, 1, 64), (2, 13, 21, 64, 64),
-                                (1, 13, 21, 64, 1), (2, 13, 21, 3, 64),
-                                (2, 13, 21, 8, 8), (1, 1, 1, 64, 64),
-                                (1, 37, 50, 64, 16), (1, 9, 20, 80, 72)):
+    for cin in (1, 2, 3, 4, 5, 8, 12, 16, 20, 64, 65, 80):
+        for cout in (1, 2, 3, 4, 5, 6, 8, 16, 20, 64, 70):
+            body(0, True, cin, cout)
+            for f32 in (True, False):
+                body(1, f32, cin, cout)
+    print("conv kernels: the C dispatch agrees with conv_body on 132 "
+          "channel pairs (A; B on f32 and bf16)", flush=True)
+
+    # a contiguous view at an odd offset is refused before a launch wherever
+    # a body reads that operand in 16-byte chunks: x and g in the tensor-core
+    # bodies, the wide operand of the thin ones
+    for cin, cout in ((FEAT, FEAT), (FEAT, 1), (1, FEAT), (FEAT, 3),
+                      (3, FEAT)):
+        xs, ws, gs = conv_inputs(torch, rng, 1, 13, 21, cin, cout)
+        reads = cdw.cp_async_reads(True, cin, cout)
+        check(any(reads), f"{cin}->{cout}: no operand read in 16-byte "
+              "chunks")
+        for k, t in enumerate((xs, gs)):
+            if not reads[k]:
+                continue
+            odd = torch.zeros(1 + t.numel(), device="cuda")[1:].view(t.shape)
+            calls = [(cdw.dw_conv3x3, (odd, gs) if k == 0 else (xs, odd))]
+            if k == 0:  # kernel A reads x as kernel B does
+                calls.append((c3.conv3x3_fwd, (odd, ws)))
+            for fn, args in calls:
+                launches = fn.launches
+                try:
+                    fn(*args)
+                    check(False, f"{fn.__name__} {cin}->{cout}: a view 4 "
+                          "bytes off a 16-byte boundary was launched")
+                except ValueError:
+                    pass
+                check(fn.launches == launches, f"{fn.__name__}: counted a "
+                      "launch it refused")
+    torch.cuda.synchronize()
+    print("conv kernels: unaligned f32 views refused (64->64 x and g, 64->n "
+          "x, n->64 g)", flush=True)
+
+    ran = {"A": set(), "B": set()}
+    for B, h, wd, cin, cout in CONV_EDGE_SHAPES:
         tag = f"{(B, h, wd, cin, cout)}"
         x, w, g = conv_inputs(torch, rng, B, h, wd, cin, cout)
         y = c3.conv3x3_fwd(x, w)
         torch.cuda.synchronize()
-        hold(f"conv3x3_fwd {tag}", y, c3.conv3x3_fwd_plain(x, w))
+        err, scale = hold(f"conv3x3_fwd {tag}", y, c3.conv3x3_fwd_plain(x, w))
+        ran["A"].add(body(0, True, cin, cout))
+        print(f"conv3x3_fwd {tag} f32 [{body(0, True, cin, cout)}]: err "
+              f"{err:.3e} (plain max {scale:.3e})", flush=True)
         for dt in (torch.float32, torch.bfloat16):
             xd, gd = x.to(dt), g.to(dt)
             d1 = cdw.dw_conv3x3(xd, gd)
@@ -2011,8 +2063,19 @@ def conv_kernel_phase(torch, F, cuda_time_ms):
             torch.cuda.synchronize()
             check(torch.equal(d1, d2), f"dw_conv3x3 {tag} {dt}: two runs "
                   "differ")
-            hold(f"dw_conv3x3 {tag} {dt}", d1, cdw.dw_conv3x3_plain(xd, gd))
-    print("conv kernels edge shapes: ok", flush=True)
+            err, scale = hold(f"dw_conv3x3 {tag} {dt}", d1,
+                              cdw.dw_conv3x3_plain(xd, gd))
+            name = body(1, dt == torch.float32, cin, cout)
+            ran["B"].add(name)
+            print(f"dw_conv3x3 {tag} {str(dt)[6:]} [{name}]: err {err:.3e} "
+                  f"(plain max {scale:.3e}), same bits on two runs",
+                  flush=True)
+    for k, want in (("A", {"FMA", "tensor cores", "thin"}),
+                    ("B", {"FMA", "tensor cores", "thin",
+                           "bf16 tensor cores"})):
+        check(ran[k] == want, f"kernel {k} edge shapes ran {sorted(ran[k])}")
+    print("conv kernels edge shapes: ok (every body of A and B ran)",
+          flush=True)
 
     # the differentiable convolutions on rows 11-12 and row 8's names, once
     # each, against the same functions on the plain versions
@@ -2092,29 +2155,32 @@ def conv_kernel_phase(torch, F, cuda_time_ms):
             again = kern()
             torch.cuda.synchronize()
             check(torch.equal(got, again), f"{tag}: two runs differ")
-        ms = cuda_time_ms(kern)
+        # the thin bodies are shorter than their wrappers' host time: the
+        # device starts ITERS calls behind a head start
+        ms = cuda_time_ms(kern, head_start_cycles=HEAD_START_CYCLES)
         plain_ms = cuda_time_ms(plain, iters=5)
-        library_ms = cuda_time_ms(library)
+        library_ms = cuda_time_ms(library, head_start_cycles=HEAD_START_CYCLES)
         flops = 2 * H * W * cin * cout * 9
         # the bound of the body that ran: bf16 MMAs; on f32 operands three
-        # TF32 products (split f32) where both channel counts are multiples
-        # of 8, else f32 FMAs; the FMA bound of the f32 function beside it
+        # TF32 products (split f32) in the tensor-core body, else f32 FMAs;
+        # the FMA bound of the f32 function beside it
+        which = body(name == "dw_conv3x3", dtype == "float32", cin, cout)
         if dtype == "bfloat16":
             bms, by = bound_ms(nbytes, flops)
-        elif cin % 8 == 0 and cout % 8 == 0:
+        elif which == "tensor cores":
             bms, by = bound_ms(nbytes, 3 * flops, TF32_FLOP_PER_S)
         else:
             bms, by = bound_ms(nbytes, flops, F32_FLOP_PER_S)
         row = {"B": 1, "dtype": dtype, "cin": cin, "cout": cout,
-               "max_abs_err": err, "max_abs_plain": scale, "ms": ms,
-               "plain_ms": plain_ms, "library_ms": library_ms,
+               "body": which, "max_abs_err": err, "max_abs_plain": scale,
+               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                "bound_ms": bms, "bound_by": by}
         if dtype == "float32":
             row["bound_f32_fma_ms"] = bound_ms(nbytes, flops,
                                                F32_FLOP_PER_S)[0]
-        print(f"kernel {tag}: err {err:.3e} (plain max {scale:.3e}) ms "
-              f"{ms:.4f} plain {plain_ms:.4f} library {library_ms:.4f} "
-              f"bound {bms:.4f} ({by})" + (
+        print(f"kernel {tag} [{which}]: err {err:.3e} (plain max "
+              f"{scale:.3e}) ms {ms:.4f} plain {plain_ms:.4f} library "
+              f"{library_ms:.4f} bound {bms:.4f} ({by})" + (
                   f", f32 FMA bound {row['bound_f32_fma_ms']:.4f}"
                   if dtype == "float32" else ""), flush=True)
         rows[name].append(row)

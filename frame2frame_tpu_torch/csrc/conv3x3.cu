@@ -63,12 +63,49 @@
 // warpgroup a block, two blocks a multiprocessor, by registers and the
 // running sums' 32 KB) more than by the tensor cores.
 //
-// Kernel A on f32 FMAs (conv3x3_f32), for the thin layers (1 -> 64, 64 ->
-// 1) and channel counts that are not multiples of 8, bound by their 133 MB
-// of bytes (0.040 ms): a block of 256 threads computes a tile of 8*NPG/2 x
-// 16 pixels by COT output channels (COT = 64, or 8 where Cout <= 8, so the
-// 64 -> 1 layer does not compute 63 empty channels), one thread 8 pixels of
-// a row by 8 channels in 64 f32 accumulators. Input channels go in chunks
+// The thin class (f32 operands, min(Cin, Cout) <= THIN_N = 4: DnCNN's first
+// and last layers, 1 -> 64 and 64 -> 1 in grayscale, 3 -> 64 and 64 -> 3 in
+// colour, and their dX and dW) is bound by the one operand with the wide
+// channel count, read or written once: 133 MB at 540p, 0.040 ms. Three
+// bodies, the narrow count n a template parameter, each a stream over that
+// operand in which 16 lanes hold a pixel's 64 wide channels, 4 a lane (16
+// bytes, so a warp moves two pixels' 256 contiguous bytes an instruction):
+// - a_thin_in (A, n -> wide): a lane's 4 output channels with their 9 n
+//   weights in registers, x's 3 x 3 x n window sliding in registers along a
+//   run of a row; y written once, by 16-byte streaming stores.
+// - a_thin_out (A, wide -> n): "inside out", as last_loss_fwd in
+//   fused_ends.cu. Each pixel of x is read once and gives its 9 n tap dots
+//   q[p, t, o] = sum_c x[p, c] W[t, c, o] (a lane's 4 channels, then the 16
+//   lanes reduced by shuffles); y[p] = sum_t q[p + off_t, t] is gathered in
+//   tap order from a ring of q rows in shared memory while a block walks a
+//   strip of columns down a segment of rows, one barrier a row. Only q of
+//   the strip's two edge columns and the segment's two edge rows is
+//   computed twice: no x halo. The segments are as many as make one wave of
+//   the card's resident blocks (a first build launched 288 blocks on 264
+//   slots: 0.110 ms; one wave at three blocks a multiprocessor 0.069), and
+//   the step keeps its cursor in counters, not divisions (0.057 ms; 540p on
+//   an H100).
+// - b_thin (B, either side narrow): a lane's 9 x n x 4 sums of dW in
+//   registers over a slot's runs of 16 pixels; the narrow operand's 3 x 3 x
+//   n window slides along a run in registers, the wide one comes in the
+//   thread's own 16-byte cp.async chunks, a few pixels ahead, through a ring
+//   in shared memory (no barrier: a thread reads back only what it copied).
+//   Its step was bound by issuing instructions (a ring 4 to 16 deep, or a
+//   walk down columns that reads a block's row contiguously, changed
+//   nothing or lost), so a run's 16 steps are unrolled and address the ring,
+//   the window and both operands at fixed offsets (0.087 -> 0.060 ms at
+//   540p on an H100). The block adds its slots' sums in a fixed order and
+//   writes one partial row; 512 threads a block for n = 1 halve the rows
+//   finish_sums adds.
+// The wide operand is read in 16-byte chunks where its channel count is a
+// multiple of 4 (ops/conv_dw.py cp_async_reads), else 4 bytes at a time.
+//
+// Kernel A on f32 FMAs (conv3x3_f32), for channel counts that are neither
+// multiples of 8 nor thin (12 -> 20), bound by their bytes: a block of 256
+// threads computes a tile of 8*NPG/2 x 16 pixels by COT output channels
+// (COT = 64, or 8 where Cout <= 8, so a layer to a few channels does not
+// compute 63 empty ones), one thread 8 pixels of a row by 8 channels in
+// 64 f32 accumulators. Input channels go in chunks
 // of CI: the chunk's halo tile (zeros outside the image) and its 9 x CI x
 // COT weights are staged in shared memory, then each thread reads ten input
 // values of a halo row and eight weights a tap and does 8 x 8 FMAs with
@@ -88,8 +125,8 @@
 // column g of four n8 tiles of g. Channels past Cin or Cout are copied as
 // zeros and never written out.
 //
-// Kernel B on f32 FMAs (dw_conv3x3_k), for the thin layers and odd channel
-// counts: a block is 9 taps x CG x OG threads, one thread the 8 x 8 block
+// Kernel B on f32 FMAs (dw_conv3x3_k), for odd channel counts that are not
+// thin: a block is 9 taps x CG x OG threads, one thread the 8 x 8 block
 // of dW of one tap, 8 input and 8 output channels, in 64 f32 accumulators.
 // Blocks walk 4 x 16 pixel tiles in a grid-stride loop; a tile's x halo
 // and g values are staged in shared memory, then each thread runs over the
@@ -1123,6 +1160,544 @@ int launch_dw_mma(const void* x, const void* g, float* dw, float* partial,
              : launch_mma<3, 8, true>(a, dw, max_blocks, stream);
 }
 
+// ---- the thin class: f32 operands, min(Cin, Cout) <= THIN_N (source note)
+
+constexpr int THIN_N = 4;                // the narrow side's largest count
+constexpr int T_THREADS = 256;
+constexpr int T_SLOTS = T_THREADS / 16;  // 16 lanes a pixel, 4 channels each
+constexpr int T_RUN = 16;                // pixels of a row a slot walks
+constexpr int T_STAGES = 4;              // b_thin: a thread's ring of chunks
+constexpr int Q_STAGES = 4;              // a_thin_out: steps of x in flight
+
+enum Body { BODY_FMA = 0, BODY_TC = 1, BODY_THIN = 2, BODY_BF16 = 3 };
+
+// Which body computes kernel A (b = 0) or B (b = 1) on these operands: the
+// one rule of f2f_conv3x3, f2f_dw_conv3x3 and f2f_conv3x3_body, which the
+// wrappers' cp_async_reads (ops/conv_dw.py) mirrors.
+int body_of(int b, int is_f32, int cin, int cout) {
+  if (b && !is_f32) return BODY_BF16;
+  if (cin % 8 == 0 && cout % 8 == 0) return BODY_TC;
+  return min(cin, cout) <= THIN_N ? BODY_THIN : BODY_FMA;
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+// Channels c .. c + 3 of pixel pix of an f32 tensor of C channels into
+// shared memory at dst, zeros past C and where !in: one 16-byte cp.async
+// where C is a multiple of 4 (vec), else four of 4 bytes.
+__device__ __forceinline__ void copy4(uint32_t dst, const float* base,
+                                      size_t pix, int c, int C, bool in,
+                                      bool vec) {
+  if (vec) {
+    const bool ok = in && c < C;
+    f2f::cp_async16(dst, ok ? base + pix * C + c : base, ok);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const bool ok = in && c + k < C;
+      cp_async4(dst + 4 * k, ok ? base + pix * C + c + k : base, ok);
+    }
+  }
+}
+
+// Run `run` of an image batch: T_RUN pixels of one image row, runs_x runs a
+// row. pix: its first pixel's index in the batch; n: its pixels in the
+// image; up, down: rows row - 1 and row + 1 in the image.
+struct ThinRun {
+  size_t pix;
+  int x0, n;
+  bool up, down;
+};
+
+__device__ __forceinline__ ThinRun thin_run(long run, int runs_x, int H,
+                                            int W) {
+  const long r = run / runs_x;  // image * H + row
+  const int x0 = (int)(run - r * runs_x) * T_RUN, row = (int)(r % H);
+  return {(size_t)r * W + x0, x0, min(T_RUN, W - x0), row > 0, row + 1 < H};
+}
+
+// Column x0 + dc of rows row - 1 .. row + 1 of the run's narrow operand
+// (t: row `row`, column x0 + dc; stride: a row), zeros outside the image.
+template <int N>
+__device__ __forceinline__ void thin_col(float (&d)[3][N], const float* t,
+                                         size_t stride, bool up, bool down,
+                                         bool in) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    d[0][j] = in && up ? __ldg(t - stride + j) : 0.f;
+    d[1][j] = in ? __ldg(t + j) : 0.f;
+    d[2][j] = in && down ? __ldg(t + stride + j) : 0.f;
+  }
+}
+
+// Kernel A, Cin = N <= THIN_N: y[p, o] = sum_t sum_c x[p + off_t, c] W[t, c,
+// o], in tap order, f32 FMAs. Bound by writing y. Slot s of block b walks
+// run 16 b + s (T_RUN pixels of one image row, unrolled); lane q owns
+// output channels 64 blockIdx.y + 4 q .. + 3 and their 9 N weights in
+// registers.
+template <int N>
+__global__ void __launch_bounds__(T_THREADS, N == 1 ? 3 : 1)
+a_thin_in(const float* __restrict__ x, const float* __restrict__ w,
+          float* __restrict__ y, int B, int H, int W, int Cout, int runs_x) {
+  const int q = threadIdx.x & 15;
+  const long run = (long)blockIdx.x * T_SLOTS + (threadIdx.x >> 4);
+  const int o = blockIdx.y * 64 + 4 * q;
+  if (run >= (long)B * H * runs_x) return;
+  float wr[9][N][4];
+#pragma unroll
+  for (int t = 0; t < 9; ++t)
+#pragma unroll
+    for (int c = 0; c < N; ++c)
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        wr[t][c][k] = o + k < Cout
+                          ? __ldg(w + ((size_t)t * N + c) * Cout + o + k)
+                          : 0.f;
+  const ThinRun ru = thin_run(run, runs_x, H, W);
+  const float* xr = x + ru.pix * N;  // the run's first pixel
+  float* yr = y + ru.pix * Cout + o;
+  const size_t stride = (size_t)W * N;
+  const bool vec = Cout % 4 == 0 && o < Cout;
+  float win[3][3][N];  // [column x - 1, x, x + 1][row][channel]
+  thin_col<N>(win[0], xr - N, stride, ru.up, ru.down, ru.x0 > 0);
+  thin_col<N>(win[1], xr, stride, ru.up, ru.down, true);
+#pragma unroll
+  for (int i = 0; i < T_RUN; ++i) {
+    if (i >= ru.n) break;
+    thin_col<N>(win[2], xr + (i + 1) * N, stride, ru.up, ru.down,
+                ru.x0 + i + 1 < W);
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int t = 0; t < 9; ++t)
+#pragma unroll
+      for (int c = 0; c < N; ++c)
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          acc[k] = fmaf(win[t % 3][t / 3][c], wr[t][c][k], acc[k]);
+    float* dst = yr + (size_t)i * Cout;
+    if (vec) {
+      __stcs(reinterpret_cast<float4*>(dst),
+             make_float4(acc[0], acc[1], acc[2], acc[3]));
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (o + k < Cout) dst[k] = acc[k];
+    }
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int r = 0; r < 3; ++r)
+#pragma unroll
+        for (int c = 0; c < N; ++c) win[s][r][c] = win[s + 1][r][c];
+  }
+}
+
+template <int N>
+int launch_a_thin_in(const float* x, const float* w, float* y, int B, int H,
+                     int W, int Cout, void* stream) {
+  const int runs_x = (W + T_RUN - 1) / T_RUN;
+  const long blocks = ((long)B * H * runs_x + T_SLOTS - 1) / T_SLOTS;
+  if (blocks > 0x7fffffffL) return (int)cudaErrorInvalidValue;
+  a_thin_in<N><<<dim3((unsigned)blocks, (Cout + 63) / 64), T_THREADS, 0,
+                 (cudaStream_t)stream>>>(x, w, y, B, H, W, Cout, runs_x);
+  return (int)cudaGetLastError();
+}
+
+// A pixel's V tap dots are cut into groups of 16, 8, 4, 2 and 1 (largest
+// first); lane q of the pixel's 16 keeps the dots of a group of M in the
+// order i ^ (q M / 16), so that each level of the reduction over the lanes
+// adds the upper half of its registers, shuffled, into the lower half, the
+// same registers in every lane: no select. Register i holds dot perm(V, i, q).
+__device__ __forceinline__ int perm(int V, int i, int q) {
+  int v0 = 0;
+  while (true) {
+    const int r = V - v0;
+    const int m = r >= 16 ? 16 : r >= 8 ? 8 : r >= 4 ? 4 : r >= 2 ? 2 : 1;
+    if (i < v0 + m) return v0 + ((i - v0) ^ ((q * m) >> 4));
+    v0 += m;
+  }
+}
+
+// All V dots of a pixel, lane q's partial sums in p, into out[0 .. V). A
+// group of M dots at p[V0 ..] is summed over the 16 lanes of the pixel in
+// halves over lane masks 8, 4, .. (a lane keeps the dots its lane bits
+// select), then the rest of the masks add whole sums: p[V0] of lane q is
+// dot q M / 16 of the group, summed in the same order in every lane.
+template <int V0, int H, int MASK, int V>
+__device__ __forceinline__ void reduce_level(float (&p)[V]) {
+  if constexpr (MASK >= 1) {
+#pragma unroll
+    for (int i = 0; i < (H > 0 ? H : 1); ++i)
+      p[V0 + i] += __shfl_xor_sync(0xffffffffu, p[V0 + i + H], MASK);
+    reduce_level<V0, H / 2, MASK / 2>(p);
+  }
+}
+
+template <int V, int V0 = 0>
+__device__ __forceinline__ void reduce_dots(float (&p)[V], float* out, int q) {
+  if constexpr (V0 < V) {
+    constexpr int R = V - V0;
+    constexpr int M = R >= 16 ? 16 : R >= 8 ? 8 : R >= 4 ? 4 : R >= 2 ? 2 : 1;
+    reduce_level<V0, M / 2, 8>(p);
+    if ((q & (16 / M - 1)) == 0) out[V0 + ((q * M) >> 4)] = p[V0];
+    reduce_dots<V, V0 + M>(p, out, q);
+  }
+}
+
+template <int N>
+struct AOut {
+  static constexpr int V = 9 * N;             // tap dots a pixel
+  static constexpr int PPS = N <= 3 ? 2 : 1;  // pixels a slot takes of a row
+  static constexpr int QW = T_SLOTS * PPS;    // pixels of a row of q
+  static constexpr int SW = QW - 2;           // output columns of a strip
+  static constexpr int STAGE = T_THREADS * PPS * 16;  // bytes of x a row
+  static constexpr int QROW = QW * V;                 // floats of a q row
+  static constexpr int SMEM = Q_STAGES * STAGE + 4 * QROW * 4;
+};
+
+struct AOutArgs {
+  const float* x;
+  const float* w;
+  float* y;
+  int H, W, Cin, ncg, strips, seg_rows;
+};
+
+// Kernel A, Cout = N <= THIN_N, inside out (source note). Block (blockIdx.x,
+// image blockIdx.y) takes output columns c0 .. c0 + SW - 1 of the strip and
+// rows r0 .. r1 - 1 of the segment, and walks q rows r0 - 1 .. r1: a step is
+// one row of QW pixels (columns c0 - 1 ..) by 64 input channels (ncg steps a
+// row), lane q of slot s copying channels 4 q .. + 3 of pixels s + 16 i
+// (Q_STAGES - 1 steps ahead) and forming their dots with its 4 x V weights.
+// A row's q goes into a ring of four rows; after one barrier, output row
+// rr - 1 is gathered from q rows rr - 2 .. rr in tap order.
+template <int N>
+__global__ void __launch_bounds__(T_THREADS, N == 1 ? 3 : 1)
+a_thin_out(const AOutArgs a) {
+  using T = AOut<N>;
+  constexpr int V = T::V, PPS = T::PPS;
+  extern __shared__ __align__(16) unsigned char q_smem[];
+  const uint32_t ring = (uint32_t)__cvta_generic_to_shared(q_smem);
+  float* qring = reinterpret_cast<float*>(q_smem + Q_STAGES * T::STAGE);
+  const int tid = threadIdx.x, q = tid & 15, slot = tid >> 4;
+  const int c0 = (blockIdx.x % a.strips) * T::SW;
+  const int r0 = (blockIdx.x / a.strips) * a.seg_rows;
+  const int r1 = min(r0 + a.seg_rows, a.H);
+  const size_t img = (size_t)blockIdx.y * a.H;
+  const bool vec = a.Cin % 4 == 0;
+  const int nsteps = (r1 - r0 + 2) * a.ncg;
+
+  float wr[V][4];
+  auto load_w = [&](int cg) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const int v = perm(V, i, q), t = v / N, o = v - t * N;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int c = 64 * cg + 4 * q + k;
+        wr[i][k] = c < a.Cin ? __ldg(a.w + ((size_t)t * a.Cin + c) * N + o)
+                             : 0.f;
+      }
+    }
+  };
+  auto stage = [&](int k, int i) {
+    return ring + (uint32_t)((k % Q_STAGES) * T::STAGE +
+                             (i * T_THREADS + tid) * 16);
+  };
+  int prow = r0 - 1, pcg = 0;  // the step that issue() copies next
+  auto issue = [&](int k) {
+    if (k < nsteps) {
+#pragma unroll
+      for (int i = 0; i < PPS; ++i) {
+        const int xc = c0 - 1 + slot + T_SLOTS * i;
+        const bool in = prow >= 0 && prow < a.H && xc >= 0 && xc < a.W;
+        copy4(stage(k, i), a.x, in ? (img + prow) * a.W + xc : 0,
+              64 * pcg + 4 * q, a.Cin, in, vec);
+      }
+      if (++pcg == a.ncg) pcg = 0, ++prow;
+    }
+    f2f::cp_async_commit();
+  };
+
+  load_w(0);
+  for (int k = 0; k < Q_STAGES - 1; ++k) issue(k);
+  float part[PPS][V];
+  for (int k = 0, rr = r0 - 1; rr <= r1; ++rr) {  // q row rr
+    for (int cg = 0; cg < a.ncg; ++cg, ++k) {
+      issue(k + Q_STAGES - 1);
+      f2f::cp_async_wait<Q_STAGES - 1>();  // step k's chunks have landed
+      if (a.ncg > 1) load_w(cg);
+#pragma unroll
+      for (int i = 0; i < PPS; ++i) {
+        const float4 xv = lds128(stage(k, i));
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          float s = cg ? part[i][j] : 0.f;
+          s = fmaf(xv.x, wr[j][0], s);
+          s = fmaf(xv.y, wr[j][1], s);
+          s = fmaf(xv.z, wr[j][2], s);
+          part[i][j] = fmaf(xv.w, wr[j][3], s);
+        }
+      }
+    }
+    float* qrow = qring + ((rr + 4) & 3) * T::QROW;
+#pragma unroll
+    for (int i = 0; i < PPS; ++i)
+      reduce_dots<V>(part[i], qrow + (slot + T_SLOTS * i) * V, q);
+    // q row rr is written; gathers of output row rr - 2 and before are done
+    // with the slot it overwrote (one barrier a row: a ring of four rows)
+    __syncthreads();
+    if (rr - 1 < r0) continue;
+    for (int e = tid; e < T::SW * N; e += T_THREADS) {
+      const int j = e / N, o = e - j * N;
+      if (c0 + j >= a.W) break;
+      float s = 0.f;
+#pragma unroll
+      for (int t = 0; t < 9; ++t)
+        s += qring[((rr - 2 + t / 3 + 4) & 3) * T::QROW + (j + t % 3) * V +
+                   t * N + o];
+      a.y[((img + rr - 1) * a.W + c0 + j) * N + o] = s;
+    }
+  }
+  f2f::cp_async_wait<0>();
+}
+
+template <int N>
+int launch_a_thin_out(const float* x, const float* w, float* y, int B, int H,
+                      int W, int Cin, void* stream) {
+  using T = AOut<N>;
+  static f2f::Resident resident;
+  int blocks = 0;  // resident blocks of the card, all segments at once
+  int rc = f2f::persistent_grid(a_thin_out<N>, T_THREADS, T::SMEM, 1L << 40,
+                                0, &resident, &blocks);
+  if (rc != 0) return rc;
+  const long strips = (W + T::SW - 1) / T::SW;
+  long segs = blocks / (strips * B);  // one wave: no block waits for a slot
+  segs = segs < 1 ? 1 : segs > H ? H : segs;
+  const int seg_rows = (int)((H + segs - 1) / segs);
+  segs = (H + seg_rows - 1) / seg_rows;
+  if (strips * segs > 0x7fffffffL) return (int)cudaErrorInvalidValue;
+  const AOutArgs a = {x, w, y, H, W, Cin, (Cin + 63) / 64, (int)strips,
+                      seg_rows};
+  a_thin_out<N><<<dim3((unsigned)(strips * segs), B), T_THREADS, T::SMEM,
+                  (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+struct BThinArgs {
+  const float* x;
+  const float* g;
+  float* partial;
+  int B, H, W, Cin, Cout, runs_x;
+};
+
+template <int N>
+struct BThin {
+  static constexpr int THREADS = N == 1 ? 512 : 256;  // by registers
+  static constexpr int SLOTS = THREADS / 16;
+  static constexpr int SMEM = T_STAGES * THREADS * 16 + 9 * N * 64 * 4;
+};
+
+// Kernel B, the narrow side N <= THIN_N: Cin (WIDE_IN false, 1 -> 64: g is
+// the wide operand) or Cout (WIDE_IN true, 64 -> 1: x is). Lane q of a slot
+// owns wide channels 64 blockIdx.y + 4 q .. + 3 and the 9 x N x 4 sums of
+// dW they take. A persistent block's slot s walks runs first = SLOTS
+// blockIdx.x + s, first + SLOTS gridDim.x, ..: a run's T_RUN steps are
+// unrolled, so that ring slots, window columns and addresses are fixed
+// offsets from pointers set once a run (the step is bound by issuing its
+// instructions, not by memory: a deeper ring gains nothing). The wide
+// operand's chunk of a pixel comes by the thread's own cp.async T_STAGES -
+// 1 steps ahead (the next run's pixels in a run's last steps); the narrow
+// one's 3 x 3 x N window slides in registers, its next column loaded a step
+// ahead. With the taps of the narrow operand at p + off_t (WIDE_IN false:
+// dW[t, j, c] += x[p + off_t, j] g[p, c]) or at p - off_t (WIDE_IN true:
+// dW[t, c, j] += x[p, c] g[p - off_t, j]), one window serves both, its taps
+// mirrored.
+template <int N, bool WIDE_IN>
+__global__ void __launch_bounds__(BThin<N>::THREADS, 1)
+b_thin(const BThinArgs a) {
+  using T = BThin<N>;
+  static_assert(T_RUN % T_STAGES == 0, "a run's steps fill whole rings");
+  extern __shared__ __align__(16) unsigned char b_smem[];
+  const int tid = threadIdx.x, q = tid & 15, lane = tid & 31, warp = tid >> 5;
+  const int cw = WIDE_IN ? a.Cin : a.Cout;
+  const float* wide = WIDE_IN ? a.x : a.g;
+  const float* thin = WIDE_IN ? a.g : a.x;
+  const int c = blockIdx.y * 64 + 4 * q;
+  const bool vec = cw % 4 == 0;
+  const long nruns = (long)a.B * a.H * a.runs_x;
+  const long slots = (long)gridDim.x * T::SLOTS;
+  const long first = (long)blockIdx.x * T::SLOTS + (tid >> 4);
+  const int nr =
+      first < nruns ? (int)((nruns - first + slots - 1) / slots) : 0;
+  const uint32_t ring = (uint32_t)__cvta_generic_to_shared(b_smem) + tid * 16;
+  const size_t stride = (size_t)a.W * N;
+  auto run_of = [&](int i) {
+    return thin_run(first + i * slots, a.runs_x, a.H, a.W);
+  };
+  // pixel j of run ru into ring slot j % T_STAGES, or nothing; one group
+  auto issue = [&](const ThinRun& ru, int j, bool any) {
+    if (any)
+      copy4(ring + (j % T_STAGES) * T::THREADS * 16, wide, ru.pix + j, c, cw,
+            j < ru.n, vec);
+    f2f::cp_async_commit();
+  };
+
+  float acc[9][N][4];
+#pragma unroll
+  for (int t = 0; t < 9; ++t)
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[t][j][k] = 0.f;
+  ThinRun nx = run_of(0);
+#pragma unroll
+  for (int j = 0; j < T_STAGES - 1; ++j) issue(nx, j, nr > 0);
+  for (int ri = 0; ri < nr; ++ri) {
+    const ThinRun ru = nx;
+    if (ri + 1 < nr) nx = run_of(ri + 1);
+    const float* tr = thin + ru.pix * N;  // the run's first pixel
+    float win[3][3][N];  // [column x - 1, x, x + 1][row][channel]
+    float nxt[3][N];     // column x + 2, loaded while x's products run
+    thin_col<N>(win[0], tr - N, stride, ru.up, ru.down, ru.x0 > 0);
+    thin_col<N>(win[1], tr, stride, ru.up, ru.down, true);
+    thin_col<N>(win[2], tr + N, stride, ru.up, ru.down, ru.x0 + 1 < a.W);
+#pragma unroll
+    for (int i = 0; i < T_RUN; ++i) {
+      const int ip = i + T_STAGES - 1;  // the pixel this step copies
+      if (ip < T_RUN) issue(ru, ip, true);
+      else issue(nx, ip - T_RUN, ri + 1 < nr);
+      f2f::cp_async_wait<T_STAGES - 1>();  // pixel i's chunk has landed
+      if (i >= ru.n) continue;  // past the image's right edge
+      const float4 v = lds128(ring + (i % T_STAGES) * T::THREADS * 16);
+      if (i > 0) {
+#pragma unroll
+        for (int r = 0; r < 3; ++r)
+#pragma unroll
+          for (int j = 0; j < N; ++j) win[2][r][j] = nxt[r][j];
+      }
+      if (i + 1 < T_RUN)
+        thin_col<N>(nxt, tr + (i + 2) * N, stride, ru.up, ru.down,
+                    ru.x0 + i + 2 < a.W);
+      const float vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int t = 0; t < 9; ++t) {
+        const int dy = WIDE_IN ? 2 - t / 3 : t / 3;
+        const int dx = WIDE_IN ? 2 - t % 3 : t % 3;
+#pragma unroll
+        for (int j = 0; j < N; ++j)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            acc[t][j][kk] = fmaf(win[dx][dy][j], vv[kk], acc[t][j][kk]);
+      }
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int r = 0; r < 3; ++r)
+#pragma unroll
+          for (int j = 0; j < N; ++j) win[s][r][j] = win[s + 1][r][j];
+    }
+  }
+  f2f::cp_async_wait<0>();
+
+  // the block's sums in a fixed order: the warp's two slots, then the
+  // warps one after another into red; one partial row a block
+  float* red = reinterpret_cast<float*>(b_smem + T_STAGES * T::THREADS * 16);
+#pragma unroll
+  for (int t = 0; t < 9; ++t)
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        acc[t][j][k] += __shfl_xor_sync(0xffffffffu, acc[t][j][k], 16);
+  for (int w8 = 0; w8 < T::THREADS / 32; ++w8) {
+    if (warp == w8 && lane < 16) {
+#pragma unroll
+      for (int t = 0; t < 9; ++t)
+#pragma unroll
+        for (int j = 0; j < N; ++j) {
+          float4* r =
+              reinterpret_cast<float4*>(red + (t * N + j) * 64 + 4 * q);
+          float4 s = make_float4(acc[t][j][0], acc[t][j][1], acc[t][j][2],
+                                 acc[t][j][3]);
+          if (w8) {
+            const float4 o = *r;
+            s = make_float4(o.x + s.x, o.y + s.y, o.z + s.z, o.w + s.w);
+          }
+          *r = s;
+        }
+    }
+    __syncthreads();
+  }
+  float* dst = a.partial + (size_t)blockIdx.x * 9 * a.Cin * a.Cout;
+  for (int e = tid; e < 9 * N * 64; e += T::THREADS) {
+    const int tj = e / 64, t = tj / N, j = tj - t * N;
+    const int ch = blockIdx.y * 64 + e % 64;
+    if (ch < cw)
+      dst[WIDE_IN ? ((size_t)t * a.Cin + ch) * N + j
+                  : ((size_t)t * N + j) * a.Cout + ch] = red[e];
+  }
+}
+
+template <int N, bool WIDE_IN>
+int launch_b_thin(const BThinArgs& a, float* dw, int max_blocks,
+                  void* stream) {
+  using T = BThin<N>;
+  static f2f::Resident resident;
+  const long ntiles = ((long)a.B * a.H * a.runs_x + T::SLOTS - 1) / T::SLOTS;
+  int grid = 0;
+  int rc = f2f::persistent_grid(b_thin<N, WIDE_IN>, T::THREADS, T::SMEM,
+                                ntiles, max_blocks, &resident, &grid);
+  if (rc != 0) return rc;
+  const int cw = WIDE_IN ? a.Cin : a.Cout;
+  b_thin<N, WIDE_IN><<<dim3(grid, (cw + 63) / 64), T::THREADS, T::SMEM,
+                       (cudaStream_t)stream>>>(a);
+  if ((rc = (int)cudaGetLastError()) != 0) return rc;
+  return f2f::finish(a.partial, grid, 9 * a.Cin * a.Cout, dw, stream);
+}
+
+int launch_a_thin(const float* x, const float* w, float* y, int B, int H,
+                  int W, int Cin, int Cout, void* stream) {
+  if (Cin <= THIN_N) {
+    switch (Cin) {
+      case 1: return launch_a_thin_in<1>(x, w, y, B, H, W, Cout, stream);
+      case 2: return launch_a_thin_in<2>(x, w, y, B, H, W, Cout, stream);
+      case 3: return launch_a_thin_in<3>(x, w, y, B, H, W, Cout, stream);
+      default: return launch_a_thin_in<4>(x, w, y, B, H, W, Cout, stream);
+    }
+  }
+  switch (Cout) {
+    case 1: return launch_a_thin_out<1>(x, w, y, B, H, W, Cin, stream);
+    case 2: return launch_a_thin_out<2>(x, w, y, B, H, W, Cin, stream);
+    case 3: return launch_a_thin_out<3>(x, w, y, B, H, W, Cin, stream);
+    default: return launch_a_thin_out<4>(x, w, y, B, H, W, Cin, stream);
+  }
+}
+
+int launch_dw_thin(const float* x, const float* g, float* dw, float* partial,
+                   int max_blocks, int B, int H, int W, int Cin, int Cout,
+                   void* stream) {
+  const BThinArgs a = {x, g, partial, B, H, W, Cin, Cout,
+                       (W + T_RUN - 1) / T_RUN};
+  if (Cin <= THIN_N) {
+    switch (Cin) {
+      case 1: return launch_b_thin<1, false>(a, dw, max_blocks, stream);
+      case 2: return launch_b_thin<2, false>(a, dw, max_blocks, stream);
+      case 3: return launch_b_thin<3, false>(a, dw, max_blocks, stream);
+      default: return launch_b_thin<4, false>(a, dw, max_blocks, stream);
+    }
+  }
+  switch (Cout) {
+    case 1: return launch_b_thin<1, true>(a, dw, max_blocks, stream);
+    case 2: return launch_b_thin<2, true>(a, dw, max_blocks, stream);
+    case 3: return launch_b_thin<3, true>(a, dw, max_blocks, stream);
+    default: return launch_b_thin<4, true>(a, dw, max_blocks, stream);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -1133,13 +1708,18 @@ int f2f_conv3x3(const float* x, const float* w, float* y, int B, int H, int W,
                 int Cin, int Cout, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 || B > 65535)
     return (int)cudaErrorInvalidValue;
-  // shape classes: the tensor cores where both channel counts are multiples
-  // of 8, f32 FMAs for the thin layers (1 -> 64, 64 -> 1) and odd counts
-  if (Cin % 8 == 0 && Cout % 8 == 0)
-    return launch_conv3x3_wg(x, w, y, B, H, W, Cin, Cout, stream);
-  return Cout <= 8 ? launch_conv3x3<8, 2>(x, w, y, B, H, W, Cin, Cout, stream)
-                   : launch_conv3x3<64, 8>(x, w, y, B, H, W, Cin, Cout,
-                                           stream);
+  // shape classes (body_of): the tensor cores where both channel counts are
+  // multiples of 8, the thin bodies where one is at most THIN_N, f32 FMAs
+  // for the other counts
+  switch (body_of(0, 1, Cin, Cout)) {
+    case BODY_TC:
+      return launch_conv3x3_wg(x, w, y, B, H, W, Cin, Cout, stream);
+    case BODY_THIN: return launch_a_thin(x, w, y, B, H, W, Cin, Cout, stream);
+    default:
+      return Cout <= 8
+                 ? launch_conv3x3<8, 2>(x, w, y, B, H, W, Cin, Cout, stream)
+                 : launch_conv3x3<64, 8>(x, w, y, B, H, W, Cin, Cout, stream);
+  }
 }
 
 // x: (B, H, W, Cin), g: (B, H, W, Cout), both f32 (is_f32) or both bf16;
@@ -1151,17 +1731,29 @@ int f2f_dw_conv3x3(const void* x, const void* g, int is_f32, float* dw,
   if (max_blocks <= 0 || B <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0
       || (Cin + B_CT - 1) / B_CT > 65535 || (Cout + B_CT - 1) / B_CT > 65535)
     return (int)cudaErrorInvalidValue;
-  if (!is_f32)
-    return launch_dw_mma(x, g, dw, partial, max_blocks, B, H, W, Cin, Cout,
-                         stream);
-  // shape classes: the tensor cores where both channel counts are multiples
-  // of 8, f32 FMAs for the thin layers (1 -> 64, 64 -> 1) and odd counts
-  return Cin % 8 == 0 && Cout % 8 == 0
-             ? launch_dw_tc(static_cast<const float*>(x),
-                            static_cast<const float*>(g), dw, partial,
-                            max_blocks, B, H, W, Cin, Cout, stream)
-             : launch_dw_fma(x, g, dw, partial, max_blocks, B, H, W, Cin,
-                             Cout, stream);
+  const float* xf = static_cast<const float*>(x);
+  const float* gf = static_cast<const float*>(g);
+  switch (body_of(1, is_f32, Cin, Cout)) {  // as f2f_conv3x3's
+    case BODY_BF16:
+      return launch_dw_mma(x, g, dw, partial, max_blocks, B, H, W, Cin, Cout,
+                           stream);
+    case BODY_TC:
+      return launch_dw_tc(xf, gf, dw, partial, max_blocks, B, H, W, Cin, Cout,
+                          stream);
+    case BODY_THIN:
+      return launch_dw_thin(xf, gf, dw, partial, max_blocks, B, H, W, Cin,
+                            Cout, stream);
+    default:
+      return launch_dw_fma(x, g, dw, partial, max_blocks, B, H, W, Cin, Cout,
+                           stream);
+  }
+}
+
+// The body that f2f_conv3x3 (kernel_b = 0) or f2f_dw_conv3x3 (kernel_b = 1)
+// runs on these operands: 0 f32 FMAs, 1 split f32 on the TF32 tensor cores,
+// 2 the thin class, 3 bf16 on the tensor cores.
+int f2f_conv3x3_body(int kernel_b, int is_f32, int cin, int cout) {
+  return body_of(kernel_b, is_f32, cin, cout);
 }
 
 const char* f2f_error_string(int code) {

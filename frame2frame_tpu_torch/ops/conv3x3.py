@@ -78,8 +78,9 @@ def conv3x3_fwd(x, w):
     x: (B, H, W, Cin) f32; w: (3, 3, Cin, Cout) f32 HWIO. Returns (B, H, W,
     Cout) f32. On the card, where Cin and Cout are multiples of 8, every
     product is split f32 on the TF32 tensor cores (hi*lo + lo*hi + hi*hi,
-    within 1.4e-6 of float64), else an f32 FMA. There x is read in 16-byte
-    chunks and must start 16-byte aligned; a view that does not raises."""
+    within 1.4e-6 of float64), else an f32 FMA (``conv_dw.conv_body``).
+    Where ``cp_async_reads`` says so, x is read in 16-byte chunks and must
+    start 16-byte aligned; a view that does not raises."""
     if x.dim() != 4 or not x.numel() or w.shape != (3, 3, x.shape[-1],
                                                     w.shape[-1]):
         raise ValueError(f"conv3x3_fwd: x {tuple(x.shape)} and w "

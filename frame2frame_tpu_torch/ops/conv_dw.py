@@ -58,16 +58,44 @@ def _batched(t):
     return t[None] if t.dim() == 3 else t
 
 
+# The thin class: f32 operands with at most this many channels on one side
+# (DnCNN's first and last layers, 1 or 3 channels), ``THIN_N`` of
+# ``csrc/conv3x3.cu``.
+THIN_N = 4
+# the bodies by their code in ``csrc/conv3x3.cu`` (``enum Body``)
+BODIES = ("FMA", "tensor cores", "thin", "bf16 tensor cores")
+
+
+def conv_body(f32, cin, cout):
+    """The body of ``csrc/conv3x3.cu`` that computes kernels A and B on
+    these operands, as its ``body_of`` picks it (``f2f_conv3x3_body``): on
+    bf16 operands (kernel B only) "bf16 tensor cores"; on f32 "tensor cores"
+    (split f32) where Cin and Cout are multiples of 8, else "thin" where one
+    of them is at most ``THIN_N``, else "FMA"."""
+    if not f32:
+        return BODIES[3]
+    if cin % 8 == 0 and cout % 8 == 0:
+        return BODIES[1]
+    return BODIES[2] if min(cin, cout) <= THIN_N else BODIES[0]
+
+
 def cp_async_reads(f32, cin, cout):
     """Which of (x, g) the kernels read from global memory in 16-byte
-    ``cp.async`` chunks (``csrc/conv3x3.cu``): on f32 operands both, in the
-    tensor-core bodies, where Cin and Cout are multiples of 8 (kernel A's x
-    in the same class); on bf16 operands each whose channel count is a
-    multiple of 8."""
-    if f32:
-        tc = cin % 8 == 0 and cout % 8 == 0
-        return tc, tc
-    return cin % 8 == 0, cout % 8 == 0
+    chunks (``cp.async``), by ``conv_body``: both in the tensor-core bodies
+    on f32; in the thin class the wide operand (x where Cin is wide, which
+    is also kernel A's x; g where Cout is) if its channel count is a
+    multiple of 4; on bf16 operands each whose channel count is a multiple
+    of 8."""
+    body = conv_body(f32, cin, cout)
+    if body == "tensor cores":
+        return True, True
+    if body == "thin":
+        if cin <= THIN_N:
+            return False, cout % 4 == 0
+        return cin % 4 == 0, False
+    if body == "bf16 tensor cores":
+        return cin % 8 == 0, cout % 8 == 0
+    return False, False
 
 
 def refuse_unaligned(name, *operands):
@@ -90,6 +118,8 @@ def _lib():
     lib.f2f_conv3x3.argtypes = [vp, vp, vp] + [ci] * 5 + [vp]
     lib.f2f_dw_conv3x3.restype = ci
     lib.f2f_dw_conv3x3.argtypes = [vp, vp, ci, vp, vp] + [ci] * 6 + [vp]
+    lib.f2f_conv3x3_body.restype = ci
+    lib.f2f_conv3x3_body.argtypes = [ci] * 4
     _bind_error_string(lib)
     return lib
 

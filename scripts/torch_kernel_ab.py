@@ -8,10 +8,14 @@ Builds ``frame2frame_tpu_torch/csrc/{fused_stack,fused_stack_bwd,conv3x3,
 fused_ends,tvl1_inner}.cu`` of both trees with the port's nvcc flags into
 ``build/ab/``, then times each kernel with CUDA events in turns: parent,
 change, change, parent. At 540x960 on bf16 operands: the forward layers,
-also on the f32 chain, ``bwd_layer``, kernel B on bf16 and on f32 operands,
-kernel A on f32 at 64->64, 1->64 and 64->1, and ``last_loss_fwd`` on both
-chains (after a head start of the device, as the kernel is shorter than
-its call). The flow's inner loop at 135x240 and 68x120 (smooth
+also on the f32 chain, ``bwd_layer``, kernel B on bf16 and on f32 operands
+at 64->64, 1->64 and 64->1 (and 3->64, 64->3 on f32), kernel A on f32 at
+the same shapes, and ``last_loss_fwd`` on both chains (every case after a
+head start of the device, as the thin layers and ``last_loss_fwd`` are
+shorter than their calls). ``CHANGED`` names the cases whose kernels the
+change redesigned (the thin f32 bodies of A and B); every other case is a
+control, printed with its change from the parent's mean. The flow's inner
+loop at 135x240 and 68x120 (smooth
 synthetic inputs, epsilon 0.01, up to 300 iterations): each tree's own
 body, which the change's ``cluster_plan`` picks by shape and the parent
 does not have (it has the cooperative body only). ``bwd_layer``'s C
@@ -36,6 +40,9 @@ SOURCES = ("fused_stack", "fused_stack_bwd", "conv3x3", "fused_ends",
            "tvl1_inner")
 FLOW_SHAPES = ((135, 240), (68, 120))
 H, W, C = 540, 960, 64
+THIN = ((1, C), (C, 1), (3, C), (C, 3))
+CHANGED = {f"{k} {i}->{o} f32" for k in ("dw_conv3x3", "conv3x3")
+           for i, o in THIN}
 
 
 def build(tree, tag, name):
@@ -167,10 +174,12 @@ def main(argv=None):
                 H, W, stream)) if two else (lambda: bwd(
                     p(g), p(zi), p(z), 0, p(w), p(vec), 0, p(da), p(stats),
                     p(part), rows, 1, H, W, stream))}
-        for cin, cout in ((C, C), (1, C), (C, 1)):
+        for cin, cout in ((C, C),) + THIN:
             dw = torch.empty(9 * cin * cout, device=dev)
             pdw = torch.empty(rows, 9 * cin * cout, device=dev)
             for f32, (zz, gz) in enumerate(((z, g), (zf, gf))):
+                if not f32 and cin * cout == 3 * C:
+                    continue  # colour on bf16: no change, no control
                 x = zz[..., :cin].contiguous()
                 gg = gz[..., :cout].contiguous()
                 out_calls[f"dw_conv3x3 {cin}->{cout}" + (" f32" if f32
@@ -235,23 +244,24 @@ def main(argv=None):
 
     by_tag = {tag: calls(tag) for tag in trees}
 
-    def timed(fn, head_start=False):
+    def timed(fn):
         def run():
             rc = fn()
             if rc:
                 raise RuntimeError(f"launch failed: cudaError {rc}")
-        return cuda_time_ms(run, iters=50,
-                            head_start_cycles=5_000_000 if head_start else 0)
+        return cuda_time_ms(run, iters=50, head_start_cycles=5_000_000)
 
-    result = {"card": card, "hw": [H, W], "ms": {}}
+    result = {"card": card, "hw": [H, W], "changed": sorted(CHANGED),
+              "ms": {}}
     for case in by_tag["change"]:
         order = ("parent", "change", "change", "parent")
-        times = [timed(by_tag[tag][case], case.startswith("last_loss_fwd"))
-                 for tag in order]
+        times = [timed(by_tag[tag][case]) for tag in order]
         result["ms"][case] = {"parent": [times[0], times[3]],
                               "change": [times[1], times[2]]}
+        move = (times[1] + times[2]) / (times[0] + times[3]) - 1
+        role = "change" if case in CHANGED else f"control {100 * move:+.1f} %"
         print(f"{case}: parent {times[0]:.4f} {times[3]:.4f} change "
-              f"{times[1]:.4f} {times[2]:.4f} ms", flush=True)
+              f"{times[1]:.4f} {times[2]:.4f} ms ({role})", flush=True)
     print(card)
     print(json.dumps(result))
 

@@ -218,12 +218,14 @@ def test_wrappers_validate_and_count_nothing_on_the_cpu():
 
 
 # (dtype, Cin, Cout, which of x and g the kernels read in 16-byte chunks):
-# the tensor-core bodies on f32, each vector operand on bf16, none on the
-# thin f32 layers
+# the tensor-core bodies on f32, each vector operand on bf16, the wide
+# operand of the thin f32 layers (g at n -> 64, x at 64 -> n)
 CP_ASYNC_CASES = [("float32", 64, 64, (True, True)),
                   ("float32", 80, 72, (True, True)),
-                  ("float32", 1, 64, (False, False)),
-                  ("float32", 64, 1, (False, False)),
+                  ("float32", 1, 64, (False, True)),
+                  ("float32", 64, 1, (True, False)),
+                  ("float32", 3, 64, (False, True)),
+                  ("float32", 64, 3, (True, False)),
                   ("bfloat16", 64, 64, (True, True)),
                   ("bfloat16", 1, 64, (False, True)),
                   ("bfloat16", 64, 1, (True, False))]
