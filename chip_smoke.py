@@ -18,10 +18,11 @@ Phases, any failure exits non-zero:
    ``bwd_layer``, on bf16 channels-last);
    the four end kernels of the flat step (``first_conv``, ``last_loss_fwd``,
    ``last_loss_bwd``, ``first_dw``) the same way, one frame, with their
-   reductions run twice for equal bits; ``last_loss_fwd`` also with
-   relu(b) > 0 in every channel (the zero border of the activation) at
-   540x960, 541x963, 1x1, 2x3 and 13x21 on both chains, and timed on the
-   f32 chain;
+   reductions run twice for equal bits; ``last_loss_fwd`` and
+   ``last_loss_bwd`` also with relu(b) > 0 in every channel (the zero
+   border of the activation) at 540x960, 541x963, 1x1, 2x3 and 13x21 on
+   both chains, each with the same bits on two runs, and both timed on the
+   f32 chain too;
 4. the serving path: the pretrained DnCNN-17 (results/dncnn17_s25) loaded
    through the port, ``OnlineDenoiser.denoise_only`` and ``denoise_batch``
    (both routes) on four 540p synthetic noisy frames under the "affine" and
@@ -697,14 +698,22 @@ def hold_end_kernels(torch, fe, tag, d, w_in, w_out):
     return errs, z1, noise
 
 
+def positive_b(fe, vecs):
+    """The last BatchNorm's vectors with b drawn so that relu(b) > 0 in
+    every channel: SAME padding applies to a, not to z, so a pixel outside
+    the image must give a = 0, not relu(b)."""
+    vecs = vecs.clone()
+    vecs[fe.E_B] = vecs[fe.E_B].abs() + 0.05
+    return vecs
+
+
 def hold_last_fwd(torch, fe, tag, d, w_out):
     """``last_loss_fwd`` with ``b`` drawn so that relu(b) > 0 in every
-    channel (SAME padding applies to a, not to z: a pixel outside the image
-    must give 0, not relu(b)) against its plain version with the kernel's
+    channel (``positive_b``) against its plain version with the kernel's
     operand rounding, and the same bits on two runs. Returns the noise's
     and the loss's (max |kernel - plain|, max |plain|)."""
-    s = d["vecs"][fe.E_S].contiguous()
-    b = (d["vecs"][fe.E_B].abs() + 0.05).contiguous()
+    vecs = positive_b(fe, d["vecs"])
+    s, b = vecs[fe.E_S].contiguous(), vecs[fe.E_B].contiguous()
     args = (d["z"], s, b, w_out, d["aux_c"], d["aux_m"])
     noise, loss = fe.last_loss_fwd(*args)
     noise2, loss2 = fe.last_loss_fwd(*args)
@@ -716,6 +725,31 @@ def hold_last_fwd(torch, fe, tag, d, w_out):
           f"{tag}: non-finite output")
     return (hold_close(tag, "noise", noise, noise_ref, ENDS_F32_RTOL),
             hold_close(tag, "loss", loss, loss_ref, ENDS_F32_RTOL))
+
+
+def hold_last_bwd(torch, fe, tag, d, w_out, vecs):
+    """``last_loss_bwd`` from the kernel forward's own noise (so both sides
+    decide the same L1 signs) against its plain version with the kernel's
+    operand rounding, and the same bits on two runs. Returns the errors by
+    output and the noise."""
+    s, b = vecs[fe.E_S].contiguous(), vecs[fe.E_B].contiguous()
+    noise, _ = fe.last_loss_fwd(d["z"], s, b, w_out, d["aux_c"], d["aux_m"])
+    args = (noise, d["aux_c"], d["aux_m"], d["z"], w_out, vecs)
+    g, dw_out, stats = fe.last_loss_bwd(*args)
+    g2, dw_out2, stats2 = fe.last_loss_bwd(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(g, g2) and torch.equal(dw_out, dw_out2)
+          and torch.equal(stats, stats2),
+          f"{tag}: two runs on the same inputs differ")
+    g_ref, dw_ref, stats_ref = fe.last_loss_bwd_plain(*args, mma_bf16=True)
+    errs = {"g_L": hold_close(tag, "g_L", g, g_ref, KERNEL_RTOL),
+            "dW_out": hold_close(tag, "dW_out", dw_out.contiguous(), dw_ref,
+                                 SUMS_RTOL)}
+    for k, name in enumerate(("sum_gp_L", "sum_gp_zhat_L")):
+        errs[name] = hold_close(tag, name, stats[k], stats_ref[k], SUMS_RTOL)
+    for name, (err, _) in errs.items():
+        check(np.isfinite(err), f"{tag} {name}: non-finite output")
+    return errs, noise
 
 
 def ends_kernel_phase(torch, F, fe, cuda_time_ms):
@@ -733,11 +767,18 @@ def ends_kernel_phase(torch, F, fe, cuda_time_ms):
     print("end kernel edge shapes: ok", flush=True)
     for h, wd in ((H, W), (541, 963), (1, 1), (2, 3), (13, 21)):
         for dt in (torch.bfloat16, torch.float32):
+            d = ends_inputs(torch, rng, h, wd, dt)
             tag = f"last_loss_fwd {(h, wd)} {dt} relu(b) > 0"
-            (en, sn), (el, sl) = hold_last_fwd(
-                torch, fe, tag, ends_inputs(torch, rng, h, wd, dt), w_out)
+            (en, sn), (el, sl) = hold_last_fwd(torch, fe, tag, d, w_out)
             print(f"{tag}: noise {en:.3e}/{sn:.3e}, loss {el:.3e}/{sl:.3e}, "
                   "the same bits on two runs", flush=True)
+            tag = f"last_loss_bwd {(h, wd)} {dt} relu(b) > 0"
+            errs, _ = hold_last_bwd(torch, fe, tag, d, w_out,
+                                    positive_b(fe, d["vecs"]))
+            print(f"{tag}: " + ", ".join(
+                f"{k} {e:.3e}/{sc:.3e}" for k, (e, sc) in errs.items())
+                + ", the same bits on two runs", flush=True)
+            del d
 
     d = ends_inputs(torch, rng, H, W, torch.bfloat16)
     errs, z1, noise = hold_end_kernels(torch, fe, "end kernels 540p bf16", d,
@@ -842,7 +883,30 @@ def ends_kernel_phase(torch, F, fe, cuda_time_ms):
     print(f"kernel last_loss_fwd B=1 float32: err {err32:.3e} (plain max "
           f"{scale32:.3e}) ms {ms:.4f} plain {plain_ms:.4f} library none "
           f"bound {bms:.4f} ({by})", flush=True)
-    del d32, args32
+    # last_loss_bwd on the f32 chain: z read and g written at 4 bytes
+    errs32, noise32 = hold_last_bwd(torch, fe, "last_loss_bwd 540p f32", d32,
+                                    w_out, d32["vecs"])
+    args32 = (noise32, d32["aux_c"], d32["aux_m"], d32["z"], w_out,
+              d32["vecs"])
+    ms = cuda_time_ms(lambda: fe.last_loss_bwd(*args32),
+                      head_start_cycles=HEAD_START_CYCLES)
+    plain_ms = cuda_time_ms(lambda: fe.last_loss_bwd_plain(
+        *args32, mma_bf16=True), iters=5)
+    bms, by = bound_ms(nbytes(*args32, torch.empty_like(d32["z"]), small)
+                       + 2 * FEAT * 4, 2 * conv_flops)
+    err32, scale32 = errs32["g_L"]
+    rows["last_loss_bwd"].append({
+        "B": 1, "dtype": "float32", "max_abs_err": err32,
+        "max_abs_plain": scale32, "ms": ms, "plain_ms": plain_ms,
+        "library_ms": None, "bound_ms": bms, "bound_by": by,
+        "errors": {k: {"max_abs_err": e, "max_abs_plain": sc}
+                   for k, (e, sc) in errs32.items()}})
+    print(f"kernel last_loss_bwd B=1 float32: err {err32:.3e} (plain max "
+          f"{scale32:.3e}) ms {ms:.4f} plain {plain_ms:.4f} library none "
+          f"bound {bms:.4f} ({by}); " + ", ".join(
+              f"{k} {e:.3e}/{sc:.3e}" for k, (e, sc) in errs32.items()),
+          flush=True)
+    del d32, args32, noise32
     torch.cuda.empty_cache()
     return rows
 

@@ -1180,12 +1180,6 @@ int body_of(int b, int is_f32, int cin, int cout) {
   return min(cin, cout) <= THIN_N ? BODY_THIN : BODY_FMA;
 }
 
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
 // Channels c .. c + 3 of pixel pix of an f32 tensor of C channels into
 // shared memory at dst, zeros past C and where !in: one 16-byte cp.async
 // where C is a multiple of 4 (vec), else four of 4 bytes.
@@ -1199,7 +1193,7 @@ __device__ __forceinline__ void copy4(uint32_t dst, const float* base,
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       const bool ok = in && c + k < C;
-      cp_async4(dst + 4 * k, ok ? base + pix * C + c + k : base, ok);
+      f2f::cp_async4(dst + 4 * k, ok ? base + pix * C + c + k : base, ok);
     }
   }
 }

@@ -135,6 +135,19 @@ __device__ __forceinline__ void ldsm_x2_trans(uint32_t addr, uint32_t& r0,
       : "r"(addr));
 }
 
+// Four 8x8 b16 matrices to shared memory, transposed: register k holds row
+// lane / 4, columns 2 (lane % 4) + {0, 1} of matrix k (mma.sync's C layout),
+// stored as column lane / 4 of rows 2 (lane % 4) + {0, 1}; lane l gives the
+// address of stored row l % 8 of matrix l / 8.
+__device__ __forceinline__ void stsm_x4_trans(uint32_t addr, uint32_t r0,
+                                              uint32_t r1, uint32_t r2,
+                                              uint32_t r3) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1,%2,%3,%4};\n"
+      ::"r"(addr), "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+      : "memory");
+}
+
 __device__ __forceinline__ void mma_bf16(float c[4], uint32_t a0, uint32_t a1,
                                          uint32_t a2, uint32_t a3, uint32_t b0,
                                          uint32_t b1) {
@@ -154,6 +167,13 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(valid ? 16 : 0));
+}
+
+// The same for 4 bytes (through L1).
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -33,17 +33,17 @@
 // 66.4 MB in bf16 (20 us at 3.35 TB/s). first_conv writes one, last_loss_fwd
 // reads one, last_loss_bwd reads one and writes one, first_dw reads two.
 // So all four are bound by bytes: every activation byte read once with
-// 16-byte loads, several loads in flight a thread. first_conv,
-// last_loss_bwd and first_dw multiply on FMAs, with operands in registers
-// and shared memory (a thread keeps one 8-channel chunk of a pixel);
-// last_loss_fwd's products go to the tensor cores, where its FMAs left it
-// bound by its own instructions (below).
+// 16-byte loads, several loads in flight a thread. first_conv and first_dw
+// multiply on FMAs, with operands in registers and shared memory (a thread
+// keeps one 8-channel chunk of a pixel); last_loss_fwd's and last_loss_bwd's
+// products go to the tensor cores, where their FMAs left them bound by their
+// own instructions (below).
 //
-// first_conv, last_loss_bwd, first_dw: a persistent block of 256 threads
-// walks tiles of 8 x 32 pixels: thread = (pixel column, 8-channel chunk),
-// looping over the tile's rows. The single-channel operand of a tile (x, or
-// -e) lies in shared memory with a one-pixel halo, zeros outside the image;
-// its rows are not 16-byte aligned for odd W, so it is loaded by scalars.
+// first_conv, first_dw: a persistent block of 256 threads walks tiles of
+// 8 x 32 pixels: thread = (pixel column, 8-channel chunk), looping over the
+// tile's rows. The single-channel operand of a tile (x) lies in shared
+// memory with a one-pixel halo, zeros outside the image; its rows are not
+// 16-byte aligned for odd W, so it is loaded by scalars.
 //
 // last_loss_fwd turns the convolution inside out: each pixel of the halo
 // tile gives its nine tap products q[p][t] = sum_c a[p][c] * w[t][c], and an
@@ -71,11 +71,26 @@
 // at 540 x 960 bf16 on an H100, 2.0x its byte bound; three groups in flight,
 // three blocks a multiprocessor and 16 x 32 tiles were no faster.
 //
+// last_loss_bwd puts both of its products on the tensor cores (see
+// last_bwd_k): g^T = W^T . E^T and dW^T = a^T . E, with E the nine -e taps
+// of 16 pixels. On FMAs (8 x 32 tiles, 144 FMAs a pixel and chunk, 234
+// registers, one block a multiprocessor, the -e halo staged between two
+// barriers before a tile's z loads) it took 0.136 ms at 540 x 960 bf16 on
+// an H100, 3.3x its byte bound. Now a block of 16 warps a multiprocessor
+// streams units of 16 pixels, each warp through its own two-unit cp.async
+// ring with no block barrier; z is read once, g written once through
+// stmatrix and 16-byte stores. What moved the time, on the card: the grid
+// walking the image as one front (each warp every n-th unit, not a
+// contiguous share), a unit body that ptxas inlines (a lambda instantiated
+// twice became a call, about an eighth slower) and a finishing sum with its
+// loads in flight (finish_rows). Deeper rings, wider units, bulk copies and
+// L2 prefetch hints were no faster.
+//
 // Sums over the pixels (loss, dW, BatchNorm sums) are reduced without
 // atomics: a thread keeps its sums over all tiles of its block, the block
 // adds them by shuffles and shared memory in a fixed order into one row of
-// partials, and finish_sums adds the rows in block order in double: the same
-// inputs give the same bits on every run.
+// partials, and finish_sums (finish_rows for last_loss_bwd) adds the rows in
+// a fixed order in double: the same inputs give the same bits on every run.
 
 #include "conv3x3_c64.cuh"
 
@@ -333,96 +348,291 @@ last_fwd_k(const T* __restrict__ z, const float* __restrict__ s,
   }
 }
 
+// last_loss_bwd's stream. A unit is 16 pixels of one image row (2 KB of z
+// bf16, 4 KB f32); warp i of the grid's n takes units i, i + n, i + 2n, ...
+// in row-major order, so the grid walks the image as one front. Each warp
+// keeps a ring of BSTAGES units in shared memory, filled by cp.async: z
+// (16-byte copies) and the unit's noise, aux_c and aux_m with a one-pixel
+// halo (3 rows of 18, 4-byte copies, zeros outside the image), on which -e
+// is computed once a halo pixel. In the registers of a lane (gq = lane / 4,
+// t4 = lane % 4) a unit covers channels c = 16 mf + gq + 8 h (mf < 4,
+// h < 2) at pixels 2 t4 + e + 8 jj (e, jj < 2):
+//   g^T (64 x 8 pixels) = W^T (64 x 16 taps) . E^T (16 taps x 8 pixels)
+//   dW^T (64 x 16 taps) = a^T (64 x 16 pixels) . E (16 pixels x 16 taps)
+// with E[p][t] = -e at p - off_t, taps 9-15 zero. The C fragment of the
+// first and the A fragment of the second hold the same (channel, pixel)
+// places, so one read of z gives a, the ReLU mask and zhat where g is.
+constexpr int BWARPS = 16;              // one block of 16 warps a multiprocessor
+constexpr int BTHREADS = 32 * BWARPS;
+constexpr int BSTAGES = 2;              // units in a warp's ring
+constexpr int UW = 16;                  // pixels a unit
+constexpr int HWU = UW + 2;             // halo columns
+constexpr int BW_FRAG = 4 * 32 * 16;    // bytes of W^T's A fragments
+constexpr int BVEC = C * 16;            // bytes of (s, b, rstd, -mean rstd)
+
+template <typename T>
+struct BwdUnit {
+  static constexpr bool BF16 = sizeof(T) == 2;
+  static constexpr int CHUNKS = C * (int)sizeof(T) / 16;  // a pixel's
+  static constexpr int ROW = BF16 ? 128 : 272;         // bytes a staged pixel
+  static constexpr int ZBYTES = UW * ROW;
+  static constexpr int STAGE = (ZBYTES + 9 * HWU * 4 + 127) / 128 * 128;
+  static constexpr int SMEM = BW_FRAG + BVEC + BWARPS * BSTAGES * STAGE;
+  // Byte offset of 16-byte chunk cc of staged pixel px. bf16: 128-byte rows,
+  // chunks swizzled by px % 8, so the eight rows of an ldmatrix or stmatrix
+  // lie on distinct banks; f32: 272-byte rows, so the 32 lanes' scalar
+  // reads of a fragment lie on distinct banks.
+  __device__ static int at(int px, int cc) {
+    return BF16 ? px * ROW + ((cc ^ (px & 7)) << 4) : px * ROW + cc * 16;
+  }
+};
+
+static_assert(BWD_SUMS * C * 4 <= BSTAGES * BwdUnit<__nv_bfloat16>::STAGE,
+              "a warp's sums fit its ring");
+
 // noise, aux_c, aux_m: (H, W) f32; z, g: (H, W, 64) T; w: (9, 64) f32;
 // vec: (4, 64) f32 = s_L, b_L, rstd_L, -mean_L * rstd_L;
 // partial: (blocks, 11, 64) f32 = nine taps of dW_out, sum gp, sum gp zhat.
 template <typename T>
-__global__ void __launch_bounds__(ETHREADS)
+__global__ void __launch_bounds__(BTHREADS, 1)
 last_bwd_k(const float* __restrict__ noise, const float* __restrict__ aux_c,
            const float* __restrict__ aux_m, const T* __restrict__ z,
            const float* __restrict__ w, const float* __restrict__ vec,
-           T* __restrict__ g, float* __restrict__ partial, int H, int W,
-           int tiles_x, int ntiles) {
-  __shared__ float es[EHH * EHW];  // -e with its halo
-  __shared__ __align__(16) float ws[9 * C];
-  __shared__ float red[EWARPS * BWD_SUMS * C];
-  const int tid = threadIdx.x, chunk = tid & 7, px = tid >> 3;
-  for (int i = tid; i < 9 * C; i += ETHREADS) ws[i] = round_bf16(w[i]);
-  float ps[8], pb[8], pr[8], pn[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    ps[k] = vec[0 * C + chunk * 8 + k];
-    pb[k] = vec[1 * C + chunk * 8 + k];
-    pr[k] = vec[2 * C + chunk * 8 + k];
-    pn[k] = vec[3 * C + chunk * 8 + k];
+           T* __restrict__ g, float* __restrict__ partial, int H, int W) {
+  using U = BwdUnit<T>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, t4 = lane & 3;
+  uint4* wfrag = reinterpret_cast<uint4*>(smem);
+  float4* vecs = reinterpret_cast<float4*>(smem + BW_FRAG);
+  unsigned char* ring = smem + BW_FRAG + BVEC + warp * BSTAGES * U::STAGE;
+  const uint32_t ring_s = (uint32_t)__cvta_generic_to_shared(ring);
+  if (tid < 128) {
+    // A fragments of W^T, rows c and c + 8 (c = 16 mf + gq), k = tap
+    const int c = 16 * warp + gq;
+    auto wt = [&](int t, int ch) { return t < 9 ? w[t * C + ch] : 0.f; };
+    wfrag[tid] = make_uint4(pack_bf16x2(wt(2 * t4, c), wt(2 * t4 + 1, c)),
+                            pack_bf16x2(wt(2 * t4, c + 8), wt(2 * t4 + 1, c + 8)),
+                            pack_bf16x2(wt(2 * t4 + 8, c), wt(2 * t4 + 9, c)),
+                            pack_bf16x2(wt(2 * t4 + 8, c + 8),
+                                        wt(2 * t4 + 9, c + 8)));
+  } else if (tid < 128 + C) {
+    const int c = tid - 128;
+    vecs[c] = make_float4(vec[c], vec[C + c], vec[2 * C + c], vec[3 * C + c]);
   }
-  float acc[BWD_SUMS][8];
-#pragma unroll
-  for (int i = 0; i < BWD_SUMS; ++i)
-#pragma unroll
-    for (int k = 0; k < 8; ++k) acc[i][k] = 0.f;
+  // -e at pixel p of a unit minus off_t: neh[toff(t) + p], neh the unit's
+  // 3 x HWU halo (row 0 image row y - 1, column 0 image column x0 - 1)
+  auto toff = [](int t) { return (2 - t / 3) * HWU + 2 - t % 3; };
+  const int oa = toff(2 * t4), ob = toff(2 * t4 + 1), og = toff(gq);
+  const int o8 = toff(8);
+  // sums of the lane: gp and gp zhat of channel 16 mf + gq + 8 h; dW^T's C
+  // fragments, taps 2 t4 + {0, 1} (dw0) and tap 8 (dw1, lanes t4 = 0)
+  float s1[4][2] = {}, s2[4][2] = {}, dw0[4][4] = {}, dw1[4][2] = {};
+  __syncthreads();
 
-  constexpr int NB = sizeof(T) == 2 ? 4 : 2;  // loads in flight a thread
-  static_assert(ETH % NB == 0, "whole batches of tile rows");
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const int y0 = (tile / tiles_x) * ETH, x0 = (tile % tiles_x) * ETW;
-    __syncthreads();  // ws is written; the previous tile is done with es
-    stage_halo(es, y0, x0, H, W, [&](size_t i) {
-      const float m = aux_m[i];
-      const float u = __fsub_rn(aux_c[i], __fmul_rn(m, noise[i]));
-      const float sgn = (float)((u > 0.f) - (u < 0.f));
-      return round_bf16(-m * sgn);
-    });
-    __syncthreads();
-    const int xx = x0 + px;
+  const int units_x = (W + UW - 1) / UW;
+  const long nunits = (long)units_x * H, nw = (long)gridDim.x * BWARPS;
+  const long gw = (long)blockIdx.x * BWARPS + warp;
+  const int n = gw < nunits ? (int)((nunits - gw + nw - 1) / nw) : 0;
+  auto unit_of = [&](int k, int& y, int& x0) {
+    const long u = gw + k * nw;
+    y = (int)(u / units_x);
+    x0 = (int)(u - (long)y * units_x) * UW;
+  };
+  auto issue = [&](int k) {
+    int y, x0;
+    unit_of(k, y, x0);
+    const uint32_t st = ring_s + (k % BSTAGES) * U::STAGE;
+    const T* zrow = z + ((size_t)y * W + x0) * C;
 #pragma unroll
-    for (int r0 = 0; r0 < ETH; r0 += NB) {
-      Chunk<T> raw[NB];
-      bool inside[NB];
+    for (int i = 0; i < UW * U::CHUNKS / 32; ++i) {
+      const int q = lane + 32 * i, px = q / U::CHUNKS, cc = q % U::CHUNKS;
+      const bool ok = x0 + px < W;
+      cp_async16(st + U::at(px, cc),
+                 ok ? zrow + px * C + cc * (16 / (int)sizeof(T)) : z, ok);
+    }
+    // neh[r][j]: noise, aux_c, aux_m (r / 3) of image row y + r % 3 - 1
 #pragma unroll
-      for (int i = 0; i < NB; ++i) {
-        const int y = y0 + r0 + i;
-        inside[i] = y < H && xx < W;
-        if (inside[i]) ldg(raw[i], z + ((size_t)y * W + xx) * C + chunk * 8);
+    for (int i = 0; i < (9 * HWU + 31) / 32; ++i) {
+      const int j = lane + 32 * i, r = j / HWU, cx = j - r * HWU;
+      const int yy = y + r % 3 - 1, x = x0 + cx - 1;
+      const float* src = r < 3 ? noise : r < 6 ? aux_c : aux_m;
+      const bool ok = yy >= 0 && yy < H && x >= 0 && x < W;
+      if (j < 9 * HWU)
+        cp_async4(st + U::ZBYTES + 4 * j, ok ? src + (size_t)yy * W + x : src,
+                  ok);
+    }
+  };
+
+#pragma unroll 1
+  for (int k = 0; k < BSTAGES - 1; ++k) {
+    if (k < n) issue(k);
+    cp_async_commit();
+  }
+#pragma unroll 1
+  for (int k = 0; k < n; ++k) {
+    if (k + BSTAGES - 1 < n) issue(k + BSTAGES - 1);
+    cp_async_commit();
+    cp_async_wait<BSTAGES - 1>();
+    __syncwarp();
+    int y, x0;
+    unit_of(k, y, x0);
+    unsigned char* st = ring + (k % BSTAGES) * U::STAGE;
+    const uint32_t st_s = ring_s + (k % BSTAGES) * U::STAGE;
+    float* neh = reinterpret_cast<float*>(st + U::ZBYTES);
+    // -e = bf16(-m sign(c - m noise)), once a halo pixel, over noise's rows
+    for (int i = lane; i < 3 * HWU; i += 32) {
+      const float m = neh[6 * HWU + i];
+      const float u = __fsub_rn(neh[3 * HWU + i], __fmul_rn(m, neh[i]));
+      neh[i] = round_bf16(-m * (float)((u > 0.f) - (u < 0.f)));
+    }
+    __syncwarp();
+    // the unit's pixels in the image: the others give a = 0 and add to no sum
+    const int lim = W - x0;
+    {
+      uint32_t bg[2][2], bd[2][2];  // E^T's B fragments; E's (taps 0-7, 8)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int p = 8 * j + gq;
+        bg[j][0] = pack_bf16x2(neh[oa + p], neh[ob + p]);
+        bg[j][1] = t4 == 0 ? pack_bf16x2(neh[o8 + p], 0.f) : 0u;
       }
 #pragma unroll
-      for (int i = 0; i < NB; ++i) {
-        if (!inside[i]) continue;
-        const int py = r0 + i;
-        float zv[8], a[8], gv[8];
-        unpack(raw[i], zv);
+      for (int j = 0; j < 2; ++j) {
+        const int p = 2 * t4 + 8 * j;
+        bd[0][j] = pack_bf16x2(neh[og + p], neh[og + p + 1]);
+        bd[1][j] = gq == 0 ? pack_bf16x2(neh[o8 + p], neh[o8 + p + 1]) : 0u;
+      }
+      // z at the lane's places: zv[mf][h + 2 jj][e]
+      float zv[4][4][2];
+      if constexpr (U::BF16) {
+        const int px = (lane & 7) + 8 * (lane >> 4);
 #pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          a[k] = round_bf16(fmaxf(affine(ps[k], zv[k], pb[k]), 0.f));
-          gv[k] = 0.f;
-        }
-        // tap t of the forward read a at p + (dy - 1, dx - 1): p's cotangent
-        // and p's share of dW_out[t] come from -e at p - (dy - 1, dx - 1)
+        for (int mf = 0; mf < 4; ++mf) {
+          uint32_t r[4];
+          ldsm_x4_trans(st_s + U::at(px, 2 * mf + ((lane >> 3) & 1)), r[0],
+                        r[1], r[2], r[3]);
 #pragma unroll
-        for (int t = 0; t < 9; ++t) {
-          const float ne = es[(py + 2 - t / 3) * EHW + px + 2 - t % 3];
-          float wv[8];
-          *reinterpret_cast<float4*>(wv) =
-              *reinterpret_cast<const float4*>(ws + t * C + chunk * 8);
-          *reinterpret_cast<float4*>(wv + 4) =
-              *reinterpret_cast<const float4*>(ws + t * C + chunk * 8 + 4);
-#pragma unroll
-          for (int k = 0; k < 8; ++k) {
-            gv[k] = fmaf(ne, wv[k], gv[k]);
-            acc[t][k] = fmaf(a[k], ne, acc[t][k]);
+          for (int mi = 0; mi < 4; ++mi) {
+            const float2 f = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(&r[mi]));
+            zv[mf][mi][0] = f.x;
+            zv[mf][mi][1] = f.y;
           }
         }
-        store8(g + ((size_t)(y0 + py) * W + xx) * C + chunk * 8, gv);
+        __syncwarp();  // every lane's z is read before g overwrites it
+      } else {
+        const float* zs = reinterpret_cast<const float*>(st);
 #pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          const float gp = affine(ps[k], zv[k], pb[k]) > 0.f ? gv[k] : 0.f;
-          acc[9][k] += gp;
-          acc[10][k] = fmaf(gp, fmaf(pr[k], zv[k], pn[k]), acc[10][k]);
+        for (int mf = 0; mf < 4; ++mf)
+#pragma unroll
+          for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              zv[mf][mi][e] = zs[(2 * t4 + e + 8 * (mi >> 1)) * (U::ROW / 4)
+                                 + 16 * mf + gq + 8 * (mi & 1)];
+      }
+#pragma unroll
+      for (int mf = 0; mf < 4; ++mf) {
+        const uint4 wa = wfrag[mf * 32 + lane];
+        float gc[2][4] = {};  // g^T: pixels 8 jj + 2 t4 + {0, 1}
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj)
+          mma_bf16(gc[jj], wa.x, wa.y, wa.z, wa.w, bg[jj][0], bg[jj][1]);
+        const float4 v[2] = {vecs[16 * mf + gq], vecs[16 * mf + gq + 8]};
+        uint32_t af[4];  // a^T's A fragment: register h + 2 jj
+#pragma unroll
+        for (int mi = 0; mi < 4; ++mi) {
+          const int h = mi & 1, jj = mi >> 1;
+          float a[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float zz = zv[mf][mi][e];
+            float yv = affine(v[h].x, zz, v[h].y);
+            if (2 * t4 + e + 8 * jj >= lim) yv = -1.f;
+            a[e] = fmaxf(yv, 0.f);
+            const float gp = yv > 0.f ? gc[jj][2 * h + e] : 0.f;
+            s1[mf][h] += gp;
+            s2[mf][h] = fmaf(gp, fmaf(v[h].z, zz, v[h].w), s2[mf][h]);
+          }
+          af[mi] = pack_bf16x2(a[0], a[1]);
+        }
+        // one k step a chain, added to the f32 sums rounded to nearest
+        float d0[4] = {}, d1[4] = {};
+        mma_bf16(d0, af[0], af[1], af[2], af[3], bd[0][0], bd[0][1]);
+        mma_bf16(d1, af[0], af[1], af[2], af[3], bd[1][0], bd[1][1]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) dw0[mf][i] += d0[i];
+        dw1[mf][0] += d1[0];
+        dw1[mf][1] += d1[2];
+        // g over the staged z, in the chain's type
+        if constexpr (U::BF16) {
+          const int px = (lane & 7) + 8 * (lane >> 4);
+          stsm_x4_trans(st_s + U::at(px, 2 * mf + ((lane >> 3) & 1)),
+                        pack_bf16x2(gc[0][0], gc[0][1]),
+                        pack_bf16x2(gc[0][2], gc[0][3]),
+                        pack_bf16x2(gc[1][0], gc[1][1]),
+                        pack_bf16x2(gc[1][2], gc[1][3]));
+        } else {
+          float* zs = reinterpret_cast<float*>(st);
+#pragma unroll
+          for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              zs[(2 * t4 + e + 8 * (mi >> 1)) * (U::ROW / 4) + 16 * mf +
+                 gq + 8 * (mi & 1)] = gc[mi >> 1][2 * (mi & 1) + e];
         }
       }
     }
+    __syncwarp();
+    // g out with 16-byte stores, whole pixels a store
+    T* grow = g + ((size_t)y * W + x0) * C;
+#pragma unroll
+    for (int i = 0; i < UW * U::CHUNKS / 32; ++i) {
+      const int q = lane + 32 * i, px = q / U::CHUNKS, cc = q % U::CHUNKS;
+      if (px < lim)
+        *reinterpret_cast<uint4*>(grow + px * C + cc * (16 / (int)sizeof(T))) =
+            *reinterpret_cast<const uint4*>(st + U::at(px, cc));
+    }
+    __syncwarp();  // the ring slot is read before it is filled again
   }
-  block_sums<BWD_SUMS>(acc, red, partial + (size_t)blockIdx.x * BWD_SUMS * C);
+  cp_async_wait<0>();
+
+  // the block's sums in a fixed order: lanes of a channel by shuffles, then
+  // warps in order through shared memory (the rings are free)
+#pragma unroll
+  for (int mf = 0; mf < 4; ++mf)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int sh = 1; sh < 4; sh <<= 1) {
+        s1[mf][h] += __shfl_xor_sync(FULL, s1[mf][h], sh);
+        s2[mf][h] += __shfl_xor_sync(FULL, s2[mf][h], sh);
+      }
+  __syncthreads();
+  float* mine = reinterpret_cast<float*>(ring);
+#pragma unroll
+  for (int mf = 0; mf < 4; ++mf)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = 16 * mf + gq + 8 * h;
+      mine[2 * t4 * C + c] = dw0[mf][2 * h];
+      mine[(2 * t4 + 1) * C + c] = dw0[mf][2 * h + 1];
+      if (t4 == 0) {
+        mine[8 * C + c] = dw1[mf][h];
+        mine[9 * C + c] = s1[mf][h];
+        mine[10 * C + c] = s2[mf][h];
+      }
+    }
+  __syncthreads();
+  for (int i = tid; i < BWD_SUMS * C; i += BTHREADS) {
+    float sum = 0.f;
+#pragma unroll
+    for (int wi = 0; wi < BWARPS; ++wi)
+      sum += reinterpret_cast<const float*>(smem + BW_FRAG + BVEC +
+                                            wi * BSTAGES * U::STAGE)[i];
+    partial[(size_t)blockIdx.x * BWD_SUMS * C + i] = sum;
+  }
 }
 
 // da, z1: (H, W, 64) T; x: (H, W) T; partial: (blocks, 9, 64) f32.
@@ -534,22 +744,49 @@ int last_loss_fwd(const void* z, const float* s, const float* b,
   return finish(partial, grid, 1, loss, stream);
 }
 
+// out[i] = the sum over rows r of partial[r * n + i], in double, in a fixed
+// order: thread (i, j) of a 32 x 16 block adds rows j, j + 16, ... in order,
+// then thread (i, 0) adds the 16 sums in order of j. The same inputs give
+// the same bits on every run. A thread has its nine loads of 132 rows in
+// flight where finish_sums' thread waits on its 132 loads in turn.
+__global__ void finish_rows(const float* __restrict__ partial, int rows, int n,
+                            float* __restrict__ out) {
+  __shared__ double part[16][33];
+  const int i = blockIdx.x * 32 + threadIdx.x, j = threadIdx.y;
+  double s = 0.0;
+  if (i < n)
+    for (int r = j; r < rows; r += 16) s += (double)partial[(size_t)r * n + i];
+  part[j][threadIdx.x] = s;
+  __syncthreads();
+  if (j == 0 && i < n) {
+    double t = 0.0;
+#pragma unroll
+    for (int k = 0; k < 16; ++k) t += part[k][threadIdx.x];
+    out[i] = (float)t;
+  }
+}
+
 template <typename T>
 int last_loss_bwd(const float* noise, const float* aux_c, const float* aux_m,
                   const void* z, const float* w, const float* vec, void* g,
                   float* sums, float* partial, int max_blocks, int H, int W,
                   void* stream) {
   static Resident resident;
+  using U = BwdUnit<T>;
   auto kern = last_bwd_k<T>;
-  const Tiles t = tiles_of(H, W);
+  const long nunits = (long)((W + UW - 1) / UW) * H;
   int grid = 0;
-  int rc = ends_grid(kern, t, max_blocks, &resident, &grid);
+  int rc = persistent_grid(kern, BTHREADS, U::SMEM,
+                           (nunits + BWARPS - 1) / BWARPS, max_blocks,
+                           &resident, &grid);
   if (rc != 0) return rc;
-  kern<<<grid, ETHREADS, 0, (cudaStream_t)stream>>>(
+  kern<<<grid, BTHREADS, U::SMEM, (cudaStream_t)stream>>>(
       noise, aux_c, aux_m, static_cast<const T*>(z), w, vec,
-      static_cast<T*>(g), partial, H, W, t.tiles_x, t.ntiles);
+      static_cast<T*>(g), partial, H, W);
   if ((rc = (int)cudaGetLastError()) != 0) return rc;
-  return finish(partial, grid, BWD_SUMS * C, sums, stream);
+  finish_rows<<<(BWD_SUMS * C + 31) / 32, dim3(32, 16), 0,
+                (cudaStream_t)stream>>>(partial, grid, BWD_SUMS * C, sums);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>

@@ -10,12 +10,12 @@ fused_ends,tvl1_inner}.cu`` of both trees with the port's nvcc flags into
 change, change, parent. At 540x960 on bf16 operands: the forward layers,
 also on the f32 chain, ``bwd_layer``, kernel B on bf16 and on f32 operands
 at 64->64, 1->64 and 64->1 (and 3->64, 64->3 on f32), kernel A on f32 at
-the same shapes, and ``last_loss_fwd`` on both chains (every case after a
-head start of the device, as the thin layers and ``last_loss_fwd`` are
-shorter than their calls). ``CHANGED`` names the cases whose kernels the
-change redesigned (the thin f32 bodies of A and B); every other case is a
-control, printed with its change from the parent's mean. The flow's inner
-loop at 135x240 and 68x120 (smooth
+the same shapes, and ``last_loss_fwd``, ``last_loss_bwd`` and ``first_dw``
+on both chains (every case after a head start of the device, as the thin
+layers and the end kernels are shorter than their calls). ``CHANGED``
+names the cases whose kernels the change redesigned (``last_loss_bwd``);
+every other case is a control, printed with its change from the parent's
+mean. The flow's inner loop at 135x240 and 68x120 (smooth
 synthetic inputs, epsilon 0.01, up to 300 iterations): each tree's own
 body, which the change's ``cluster_plan`` picks by shape and the parent
 does not have (it has the cooperative body only). ``bwd_layer``'s C
@@ -41,8 +41,7 @@ SOURCES = ("fused_stack", "fused_stack_bwd", "conv3x3", "fused_ends",
 FLOW_SHAPES = ((135, 240), (68, 120))
 H, W, C = 540, 960, 64
 THIN = ((1, C), (C, 1), (3, C), (C, 3))
-CHANGED = {f"{k} {i}->{o} f32" for k in ("dw_conv3x3", "conv3x3")
-           for i, o in THIN}
+CHANGED = {"last_loss_bwd", "last_loss_bwd f32"}
 
 
 def build(tree, tag, name):
@@ -114,6 +113,15 @@ def main(argv=None):
     noise = torch.empty(H, W, device=dev)
     loss = torch.empty((), device=dev)
     part_loss = torch.empty(rows, device=dev)
+    # last_loss_bwd: a forward's noise, the last BatchNorm's four vectors;
+    # first_dw: a frame in the chain's dtype
+    noise_in = randn(H, W, scale=0.3)
+    vec_e = torch.stack([1 + randn(C, scale=0.2), randn(C, scale=0.1),
+                         0.5 + torch.rand(C, device=dev, generator=gen),
+                         randn(C, scale=0.1)])
+    sums_e = torch.empty(11, C, device=dev)
+    part_e = torch.empty(rows, 11, C, device=dev)
+    x_in = randn(H, W)
 
     def flow_inputs(ny, nx):
         """The ten arrays of the inner loop, smooth as the solver's are."""
@@ -196,11 +204,27 @@ def main(argv=None):
         fe = libs[tag, "fused_ends"].f2f_last_loss_fwd
         fe.restype = ci
         fe.argtypes = [vp, ci] + [vp] * 8 + [ci] * 3 + [vp]
-        for f32, zz in enumerate((z, zf)):
-            out_calls["last_loss_fwd" + (" f32" if f32 else "")] = (
+        lib = libs[tag, "fused_ends"]
+        lib.f2f_last_loss_bwd.restype = lib.f2f_first_dw.restype = ci
+        lib.f2f_last_loss_bwd.argtypes = ([vp] * 4 + [ci] + [vp] * 5
+                                          + [ci] * 3 + [vp])
+        lib.f2f_first_dw.argtypes = [vp] * 3 + [ci] + [vp] * 2 + [ci] * 3 + [vp]
+        for f32, (zz, oo, gz) in enumerate(((z, out, g), (zf, outf, gf))):
+            sfx = " f32" if f32 else ""
+            xx = x_in.to(zz.dtype)
+            out_calls["last_loss_fwd" + sfx] = (
                 lambda zz=zz, f32=f32: fe(
                     p(zz), f32, p(s), p(b), p(w_out), p(aux_c), p(mask),
                     p(noise), p(loss), p(part_loss), rows, H, W, stream))
+            out_calls["last_loss_bwd" + sfx] = (
+                lambda zz=zz, oo=oo, f32=f32: lib.f2f_last_loss_bwd(
+                    p(noise_in), p(aux_c), p(mask), p(zz), f32, p(w_out),
+                    p(vec_e), p(oo), p(sums_e), p(part_e), rows, H, W,
+                    stream))
+            out_calls["first_dw" + sfx] = (
+                lambda zz=zz, gz=gz, xx=xx, f32=f32: lib.f2f_first_dw(
+                    p(gz), p(zz), p(xx), f32, p(sums_e), p(part_e), rows, H,
+                    W, stream))
         tv = libs[tag, "tvl1_inner"]
         tv.f2f_tvl1_inner.restype = ci
         tv.f2f_tvl1_inner.argtypes = [vp] * 6 + [ci] * 3 + [cf] * 4 + [ci, vp]
