@@ -95,7 +95,26 @@ Phases, any failure exits non-zero:
    ``.flo`` files: ``plot_psnr.txt``, a gain over the noisy frames, the
    frames written, ``final.msgpack`` read back equal to the engine's state
    bit for bit, launch counts, frames/s;
-11. a JSON line of per-kernel numbers (launches by path: each kernel is
+11. the H-split step (``parallel/spatial.py``): after phase 3, the four
+   mid-layer kernels with a row window against their windowed plain
+   versions on both chains (``WINDOW_CASES``: every slab of 540x960 as 1,
+   2 and 4 slabs and of 1080x1920 as 2, both slabs of 541x963 split in
+   two, the interior slab of 540x960 split in three), the whole frame's
+   window bit-equal to no window, and the times of the launches without a
+   window, with the whole frame's and with one slab's; at the end, the
+   pretrained DnCNN-17's split backward (D = 2, 4) against the unsplit
+   backward from the same forward (dW, dgamma, dbeta and the stack input's
+   cotangent): on the kernels, both chains, ``STEP_GRAD_RTOL``; on the
+   plain versions in f32, ``SPATIAL_PLAIN_GRAD_RTOL``; the model fine-tuned on
+   one 540p frame (20 updates) as 1, 2 and 4 slabs on ``cuda:0``, f32 and
+   bf16 chains, against the unsplit per-iteration route (the first loss
+   1e-4; the updates: losses 0.5 %, PSNR 0.1 dB, frame rms 5e-3, the
+   slabs' edge rows no farther off than 1.5 times the others), exactly
+   D x 15 launches of each mid-layer kernel an update; a 1080p frame
+   fine-tuned and served at D = 2 on both eval routes (served frames
+   bit-equal to the unsplit route's); host and device ms, and the peak
+   device memory of the 1080p steps;
+12. a JSON line of per-kernel numbers (launches by path: each kernel is
    launched on every path it belongs to and on no other), then the card
    line, then the result line ``{"ok": true, "device": {...}}``.
 
@@ -194,6 +213,37 @@ CONV_LAUNCHES = {
 BF16_GRAPH_LOSS_RTOL = 1.5e-2
 BF16_GRAPH_PSNR_TOL = 0.4  # dB
 STREAM_FRAMES = 5
+# the windowed kernels' holds, (H, W, D, slab k): every slab shape and
+# window the split path runs (a 540p frame as 1, 2 and 4 slabs, a 1080p
+# frame as 2), both slabs of a 541x963 frame (its last slab holds a pad
+# row), the interior slab of a 540p frame split in three
+WINDOW_CASES = ((540, 960, 1, 0), (540, 960, 2, 0), (540, 960, 2, 1),
+                (540, 960, 4, 0), (540, 960, 4, 1), (540, 960, 4, 2),
+                (540, 960, 4, 3), (1080, 1920, 2, 0), (1080, 1920, 2, 1),
+                (541, 963, 2, 0), (541, 963, 2, 1), (540, 960, 3, 1))
+# the H-split fine-tune (parallel/spatial.py) on one card, slabs on cuda:0,
+# against the unsplit per-iteration route on the same inputs, on both chains.
+# The split sums the BN statistics in another order; the kernels round their
+# MMA operands to bf16 on the f32 chain too, so an ulp of a statistic rounds
+# some operands the other way, and 20 Adam updates (whose steps do not
+# shrink with the gradient) compound it: a single slab (D = 1: no halo, no
+# psum, only the tiles shifted by a row) drifts as far as D = 2 and 4
+# (measured on an H100, f32: worst loss 1.4e-4 / 1.4e-4 / 1.6e-4, frame
+# rms 1.2e-3 / 1.1e-3 / 1.1e-3). So the first loss,
+# the forward of the same weights, is held tightly; the 20 updates by the
+# bounds of the flat route against the per-iteration route; and the rows at
+# the slabs' edges, where a fault of the halos would show, by the frame's
+# other rows (measured 0.79-0.89 of them). Served frames are the same bits:
+# eval sums nothing.
+SPATIAL_D = (1, 2, 4)
+SPATIAL_FIRST_LOSS_RTOL = 1e-4
+# the split backward against the unsplit one from the same forward, on the
+# plain versions in f32 (no bf16 operand): only the order of f32 sums
+# differs, where a row summed by two slabs or by none moves a gradient by
+# about its share of the frame's rows, 2e-3 at 540p
+SPATIAL_PLAIN_GRAD_RTOL = 1e-4
+SPATIAL_EDGE_RMS_RATIO = 1.5
+SPATIAL_PHASE_S = 120
 # golden flows of the reference binary: the JAX package's own bounds
 # (tests/test_tvl1_golden.py)
 GOLDEN_MEAN_TOL, GOLDEN_MAX_TOL = 1e-5, 5e-4
@@ -502,25 +552,28 @@ def train_inputs(torch, rng, shape, dt):
     return t(), t(), t(0.1), torch.from_numpy(vecs.astype(np.float32)).cuda()
 
 
-def hold_train_kernels(torch, fs, tag, z_prev, z_i, g, w, wk, vecs):
+def hold_train_kernels(torch, fs, tag, z_prev, z_i, g, w, wk, vecs, vb=None):
     """``fwd_layer_train`` and ``bwd_layer`` (``first_layer`` both ways)
-    against their plain versions with the kernels' operand rounding; returns
-    the errors by output."""
+    against their plain versions with the kernels' operand rounding, with
+    the row window ``vb`` where given; returns the errors by output."""
     errs = {}
     s, b = vecs[fs.V_SP].contiguous(), vecs[fs.V_BP].contiguous()
-    z, stats = fs.fwd_layer_train(z_prev, wk, s, b)
+    z, stats = fs.fwd_layer_train(z_prev, wk, s, b, valid_bounds=vb)
     torch.cuda.synchronize()
     z_ref, stats_ref = fs.fwd_layer_train_plain(z_prev, w, s, b,
-                                                mma_bf16=True)
+                                                mma_bf16=True,
+                                                valid_bounds=vb)
     errs["z"] = hold_close(tag, "z", z, z_ref, KERNEL_RTOL)
     for k, name in enumerate(("sum_z", "sum_z2")):
         errs[name] = hold_close(tag, name, stats[k], stats_ref[k], SUMS_RTOL)
     for first in (False, True):
         sfx = "_first" if first else ""
-        da, dw, sp = fs.bwd_layer(g, z_i, z_prev, wk, vecs, first)
+        da, dw, sp = fs.bwd_layer(g, z_i, z_prev, wk, vecs, first,
+                                  valid_bounds=vb)
         torch.cuda.synchronize()
         da_ref, dw_ref, sp_ref = fs.bwd_layer_plain(g, z_i, z_prev, w, vecs,
-                                                    first, mma_bf16=True)
+                                                    first, mma_bf16=True,
+                                                    valid_bounds=vb)
         errs["da" + sfx] = hold_close(tag, "da" + sfx, da, da_ref, KERNEL_RTOL)
         errs["dW" + sfx] = hold_close(tag, "dW" + sfx, dw, dw_ref, SUMS_RTOL)
         for k, name in enumerate(("sum_gp", "sum_gp_zhat")):
@@ -2518,6 +2571,374 @@ def streaming_phase(torch, fs, psnr, variables):
     return launches, out
 
 
+def spatial_kernel_phase(torch, fs, cuda_time_ms):
+    """The four mid-layer kernels with a row window (``valid_bounds``)
+    against their windowed plain versions on both chains (``WINDOW_CASES``);
+    the window of a whole 540p frame against the launch without one, bit for
+    bit (the wrappers launch the window entry points only, with [0, H)
+    where no window is given: the hold keeps it so); CUDA-event times of the launches without a window, with the whole
+    frame's window and with the window of one slab of a 540p frame split in
+    two. Returns ``{kernel: what the kernels line records of its window}``."""
+    from frame2frame_tpu_torch.ops.fused_spatial import _valid_bounds, pad_h
+
+    rng = np.random.default_rng(12)
+    w = torch.from_numpy((rng.standard_normal((3, 3, FEAT, FEAT))
+                          * np.sqrt(2.0 / (9 * FEAT))).astype(np.float32)).cuda()
+    wk = fs.kernel_weights(w)
+    for hf, wf, D, k in WINDOW_CASES:
+        R = pad_h(hf, D) // D
+        vb = _valid_bounds(k, R, hf)
+        for dt in (torch.bfloat16, torch.float32):
+            z_prev, z_i, g, vecs = train_inputs(torch, rng, (1, R + 2, wf), dt)
+            tag = (f"windowed kernels {hf}x{wf} D={D} slab {k} window {vb} "
+                   f"{str(dt).replace('torch.', '')}")
+            hold_train_kernels(torch, fs, tag, z_prev, z_i, g, w, wk, vecs, vb)
+            s, b = vecs[fs.V_SP].contiguous(), vecs[fs.V_BP].contiguous()
+            a = torch.relu(z_prev)
+            hold_close(tag, "fwd_layer",
+                       fs.fwd_layer(z_prev, wk, s, b, valid_bounds=vb),
+                       fs.fwd_layer_plain(z_prev, w, s, b, valid_bounds=vb),
+                       KERNEL_RTOL)
+            hold_close(tag, "fwd_layer_eval",
+                       fs.fwd_layer_eval(a, wk, s, b, valid_bounds=vb),
+                       fs.fwd_layer_eval_plain(a, w, s, b, valid_bounds=vb),
+                       KERNEL_RTOL)
+    print(f"windowed kernels: {len(WINDOW_CASES)} windows x 2 chains held "
+          "against their windowed plain versions", flush=True)
+
+    z_prev, z_i, g, vecs = train_inputs(torch, rng, (1, H, W), torch.bfloat16)
+    s, b = vecs[fs.V_SP].contiguous(), vecs[fs.V_BP].contiguous()
+    R = H // 2
+    slab = [x[:, :R + 2].contiguous() for x in (z_prev, z_i, g)]
+
+    def launch(name, zp, zi, gg, vb, first=False):
+        if name == "fwd_layer":
+            return lambda: [fs.fwd_layer(zp, wk, s, b, valid_bounds=vb)]
+        if name == "fwd_layer_eval":
+            a = torch.relu(zp)
+            return lambda: [fs.fwd_layer_eval(a, wk, s, b, valid_bounds=vb)]
+        if name == "fwd_layer_train":
+            return lambda: list(fs.fwd_layer_train(zp, wk, s, b,
+                                                   valid_bounds=vb))
+        return lambda: list(fs.bwd_layer(gg, zi, zp, wk, vecs, first,
+                                         valid_bounds=vb))
+
+    full = (0, H, 0, H)
+    out = {}
+    for name in ("fwd_layer", "fwd_layer_train", "fwd_layer_eval",
+                 "bwd_layer"):
+        for first in ((False, True) if name == "bwd_layer" else (False,)):
+            got = launch(name, z_prev, z_i, g, full, first)()
+            ref = launch(name, z_prev, z_i, g, None, first)()
+            check(all(torch.equal(x, y) for x, y in zip(got, ref)),
+                  f"{name}: the window of the whole frame changes the bits")
+        ms = {what: cuda_time_ms(launch(name, *xs, vb),
+                                 head_start_cycles=HEAD_START_CYCLES)
+              for what, xs, vb in (
+                  ("no_window", (z_prev, z_i, g), None),
+                  ("whole_frame_window", (z_prev, z_i, g), full),
+                  ("slab_of_2", slab, _valid_bounds(0, R, H)))}
+        out[name] = {"valid_bounds": "held", "window_ms": ms,
+                     "window_cases": [list(c) for c in WINDOW_CASES]}
+        print(f"windowed kernel {name} 540p bf16: ms no window "
+              f"{ms['no_window']:.4f}, whole frame's window "
+              f"{ms['whole_frame_window']:.4f}, one slab of two "
+              f"({R + 2} rows) {ms['slab_of_2']:.4f}; bit-equal without a "
+              "window", flush=True)
+    del z_prev, z_i, g, slab
+    torch.cuda.empty_cache()
+    return out
+
+
+def spatial_backward_hold(torch, fs, variables, frame, dt, D, plain=False):
+    """The split backward against the unsplit one from the SAME forward: the
+    unsplit forward of the pretrained DnCNN-17 on one 540p frame, its conv
+    outputs split into D slabs on ``cuda:0``, and the split layer loop
+    (windows, halo exchange, psums, the last BatchNorm's sums per slab)
+    against the unsplit loop on the cotangent of the fine-tune's L1 loss.
+    Per parameter max |d| / max |ref| of dW, dgamma and dbeta, and of the
+    stack input's cotangent: a row summed by two slabs or by none moves them
+    by its share, which Adam's steps would hide. On the kernels (bf16 MMA
+    operands on either chain, so an ulp of a sum flips some roundings)
+    within ``STEP_GRAD_RTOL`` (a bf16 cotangent ``KERNEL_RTOL``); on the
+    plain versions in f32 (``plain``), the same split machinery with no
+    bf16 operand, within ``SPATIAL_PLAIN_GRAD_RTOL``. Returns the worst by
+    kind."""
+    from frame2frame_tpu_torch.models.dncnn import from_jax_variables
+    from frame2frame_tpu_torch.models.fused_apply import _make_end_conv
+    from frame2frame_tpu_torch.ops import fused_spatial as fsp
+    from frame2frame_tpu_torch.parallel.spatial import make_space_mesh
+
+    cur, prev = frame[0], frame[1]
+    dev = cur.device
+    fwd, bwd = ((fs.fwd_layer_train_plain, fs.bwd_layer_plain) if plain
+                else (fs.fwd_layer_train, fs.bwd_layer))
+    model = from_jax_variables(variables, residual=True).to(dev)
+    mids = [model.mid(i) for i in range(model.nmid)]
+    end_conv = _make_end_conv(dt)
+    with torch.no_grad():
+        a_in = torch.relu(end_conv(cur[None], model.conv_in.weight)).to(dt)
+        ws = torch.stack([c.weight for c, _ in mids]).permute(0, 3, 4, 2, 1)
+        wk = fs.kernel_weights(ws)
+        gammas = torch.stack([bn.weight for _, bn in mids])
+        betas = torch.stack([bn.bias for _, bn in mids])
+        count = a_in.shape[0] * a_in.shape[1] * a_in.shape[2]
+        zs, ss, bs, means, vars_ = fs.mid_forward(
+            fwd, wk, gammas, betas, a_in, count)
+        rstd, nmr = fs.bn_norm(means, vars_)
+    a_out = torch.relu(zs[-1].float() * ss[-1] + bs[-1]).requires_grad_()
+    noise = end_conv(a_out, model.conv_out.weight).float()
+    loss = (cur[None] - noise - prev[None]).abs().sum()
+    g = torch.autograd.grad(loss, a_out)[0].to(dt).contiguous()
+    whole = [(0, a_in.shape[1], 0, a_in.shape[1])]
+    with torch.no_grad():
+        ref = fs.mid_backward(
+            bwd, wk, zs, a_in, ss, bs, means, rstd, nmr, count, g,
+            *fsp._last_bn_sums([g], [zs[-1]], ss[-1], bs[-1], rstd[-1],
+                               nmr[-1], whole))
+        mesh = make_space_mesh(devices=[dev] * D)
+        bounds = fsp._geometry(a_in, a_in.shape[1], mesh)
+        gk = fsp.split_frame(g, mesh)
+        zk = [fsp.split_frame(z, mesh) for z in zs]
+        got = fs.mid_backward(
+            fsp._sharded_bwd(bwd, bounds), wk, zk,
+            fsp.split_frame(a_in, mesh), ss, bs, means, rstd, nmr, count, gk,
+            *fsp._last_bn_sums(gk, zk[-1], ss[-1], bs[-1], rstd[-1], nmr[-1],
+                               bounds))
+        torch.cuda.synchronize()
+    worst = {}
+    for kind, x, y in (("dW", got[0], ref[0]), ("dgamma", got[1], ref[1]),
+                       ("dbeta", got[2], ref[2])):
+        check(bool(torch.isfinite(x).all()), f"split backward: {kind}")
+        worst[kind] = max(e / sc for e, sc in (rel_err(x[i], y[i])
+                                               for i in range(len(x))))
+    e, sc = rel_err(fsp.gather_frame(got[3]), ref[3])
+    worst["da1"] = e / sc
+    what = (f"split backward D={D} {str(dt).replace('torch.', '')} "
+            f"{'plain versions' if plain else 'kernels'}")
+    print(f"{what}, against the unsplit backward from the same forward, "
+          "max|d|/max|ref| worst over the layers: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()), flush=True)
+    # the cotangent is stored in the chain's dtype: on bf16 the sums' other
+    # order flips some of its roundings, each by 2^-8 of its value
+    bounds = {k: SPATIAL_PLAIN_GRAD_RTOL if plain else STEP_GRAD_RTOL
+              for k in worst}
+    if dt == torch.bfloat16 and not plain:
+        bounds["da1"] = KERNEL_RTOL
+    for kind, v in worst.items():
+        check(v <= bounds[kind], f"{what}: {kind} off by {v}")
+    return worst
+
+
+def spatial_phase(torch, fs, psnr, variables):
+    """The H-split online fine-tune (``parallel.spatial``), the pretrained
+    DnCNN-17 on one card as D = 1, 2 and 4 slabs on ``cuda:0``, 20 Adam
+    updates of one 540p frame on each chain against the unsplit
+    per-iteration route on the same inputs; one 1080p frame (the 540p scene
+    at twice the size) fine-tuned and served at D = 2 on both eval routes;
+    host and device ms of the split steps. Returns (launch counts of the
+    counted run, timings and comparisons)."""
+    import torch.nn.functional as F
+
+    from frame2frame_tpu_torch.models.dncnn import JaxRavel, from_jax_variables
+    from frame2frame_tpu_torch.parallel.spatial import (
+        make_space_mesh, make_spatial_online_step)
+    from frame2frame_tpu_torch.train.online import (
+        make_denoise, make_online_step, torch_adam)
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    bf16, f32 = torch.bfloat16, torch.float32
+    clean, noisy, flows = moving_frames(2)
+    f540 = [torch.from_numpy(a).to(dev)
+            for a in (noisy[1], noisy[0], flows[1])]
+
+    def up(a):
+        x = torch.from_numpy(a).to(dev).permute(2, 0, 1)[None]
+        x = F.interpolate(x, scale_factor=2, mode="bilinear",
+                          align_corners=False)
+        return x[0].permute(1, 2, 0).contiguous()
+
+    rng = np.random.default_rng(13)
+    clean_hd = [up(clean[k]) for k in (1, 0)]
+    f1080 = [c + SIGMA * torch.from_numpy(rng.standard_normal(
+        c.shape, dtype=np.float32)).to(dev) for c in clean_hd]
+    f1080.append(2 * up(flows[1]))
+    clean_hd = clean_hd[0].cpu().numpy()
+
+    def engine(D, dt):
+        model = from_jax_variables(variables, residual=True).to(dev)
+        tx = torch_adam(5e-5, 1e-5)
+        state = tx.init(JaxRavel(model).ravel())
+        if D is None:
+            step = make_online_step(model, tx, iters=ITERS,
+                                    residual_model=True, flat_step=False,
+                                    store_dtype=dt)
+        else:
+            step = make_spatial_online_step(
+                model, tx, make_space_mesh(devices=[dev] * D), iters=ITERS,
+                residual_model=True, store_dtype=dt)
+        return model, step, state
+
+    def fine_tune(D, dt, frame, what):
+        model, step, state = engine(D, dt)
+        t0 = time.perf_counter()
+        _, deno, losses = step(state, *frame)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        ls = losses.cpu().numpy()
+        check(deno.shape == frame[0].shape and ls.shape == (ITERS,),
+              f"{what}: shapes {tuple(deno.shape)} {ls.shape}")
+        check(np.isfinite(ls).all() and bool(torch.isfinite(deno).all()),
+              f"{what}: non-finite output")
+        check(ls[-1] < ls[0], f"{what}: loss did not fall ({ls[0]} -> "
+              f"{ls[-1]})")
+        return {"deno": deno.cpu().numpy(), "losses": ls, "ms": ms,
+                "model": model, "step": step, "state": state}
+
+    grads = {f"D={D} {str(dt).replace('torch.', '')} "
+             f"{'plain' if plain else 'kernels'}":
+             spatial_backward_hold(torch, fs, variables, f540, dt, D, plain)
+             for dt, plain in ((bf16, False), (f32, False), (f32, True))
+             for D in (2, 4)}
+    torch.cuda.empty_cache()
+
+    def peak_gib(run):
+        # the most device memory the run held above what was held before it
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        r = run()
+        r["peak_gib"] = (torch.cuda.max_memory_allocated() - before) / 2 ** 30
+        return r
+
+    # the unsplit references, outside the counted run
+    ref = {dt: fine_tune(None, dt, f540, f"unsplit {dt}") for dt in (bf16, f32)}
+    ref_hd = peak_gib(lambda: fine_tune(None, bf16, f1080, "unsplit 1080p"))
+
+    def mids(D, eval_layers=True):
+        return {"fwd_layer_train": D * NMID * ITERS,
+                "bwd_layer": D * NMID * ITERS,
+                "fwd_layer": D * NMID if eval_layers else 0}
+
+    fs.reset_launch_counts()
+    runs = {}
+    for dt in (bf16, f32):
+        for D in SPATIAL_D:
+            what = f"split D={D} {str(dt).replace('torch.', '')}"
+            done = count_run(torch, fs, mids(D), what)
+            runs[what] = (D, dt, fine_tune(D, dt, f540, what))
+            done()
+    done = count_run(torch, fs, mids(2), "split D=2 1080p")
+    hd = peak_gib(lambda: fine_tune(2, bf16, f1080, "split D=2 1080p"))
+    done()
+    mesh2 = make_space_mesh(devices=[dev] * 2)
+    served = {}
+    for impl, kname in (("affine", "fwd_layer"), ("act-bf16", "fwd_layer_eval")):
+        done = count_run(torch, fs, {kname: 2 * NMID}, f"serve 1080p {impl}")
+        served[impl] = make_denoise(hd["model"], residual_model=True,
+                                    spatial_mesh=mesh2)(f1080[0],
+                                                        eval_impl=impl)
+        torch.cuda.synchronize()
+        done()
+    launches = fs.launch_counts()
+
+    out = {}
+    for what, (D, dt, r) in runs.items():
+        rr = ref[dt]
+        dl = float(np.abs(r["losses"] / rr["losses"] - 1).max())
+        dl0 = float(abs(r["losses"][0] / rr["losses"][0] - 1))
+        d = r["deno"] - rr["deno"]
+        dmax, drms = float(np.abs(d).max()), float(np.sqrt(np.mean(d ** 2)))
+        # rows within 2 of a slab's edge against the others: a fault of the
+        # halos would show there first
+        R = H // D
+        edge = np.zeros(H, bool)
+        for k in range(1, D):
+            edge[max(k * R - 2, 0):k * R + 2] = True
+        rms_edge = (float(np.sqrt(np.mean(d[edge] ** 2))) if edge.any()
+                    else 0.0)
+        rms_rest = float(np.sqrt(np.mean(d[~edge] ** 2)))
+        p, pr = psnr(clean[1], r["deno"]), psnr(clean[1], rr["deno"])
+        print(f"spatial {what}: loss {r['losses'][0]:.2f} -> "
+              f"{r['losses'][-1]:.2f}, against unsplit first loss rel "
+              f"{dl0:.3e} worst {dl:.3e}, frame max {dmax:.3e} rms {drms:.3e} "
+              f"(rows at slab edges {rms_edge:.3e}, others {rms_rest:.3e}), "
+              f"psnr {p:.4f} (unsplit {pr:.4f}) dB, host {r['ms']:.1f} ms "
+              f"(unsplit {rr['ms']:.1f})", flush=True)
+        out[what] = {"first_loss_rel_err": dl0, "worst_loss_rel_err": dl,
+                     "max_abs_denoised_diff": dmax, "rms_denoised_diff": drms,
+                     "rms_slab_edge_rows": rms_edge,
+                     "rms_other_rows": rms_rest, "psnr": p,
+                     "psnr_unsplit": pr, "host_ms_first_call": r["ms"]}
+    for what, o in out.items():
+        check(o["first_loss_rel_err"] <= SPATIAL_FIRST_LOSS_RTOL,
+              f"{what}: first loss off by {o['first_loss_rel_err']}")
+        check(o["worst_loss_rel_err"] <= TRAIN_LOSS_RTOL,
+              f"{what}: losses off by {o['worst_loss_rel_err']}")
+        check(abs(o["psnr"] - o["psnr_unsplit"]) <= TRAIN_PSNR_TOL,
+              f"{what}: psnr off by {o['psnr'] - o['psnr_unsplit']} dB")
+        check(o["rms_denoised_diff"] <= ROUTES_DENO_RMS,
+              f"{what}: frame rms off by {o['rms_denoised_diff']}")
+        check(o["rms_slab_edge_rows"]
+              <= SPATIAL_EDGE_RMS_RATIO * o["rms_other_rows"],
+              f"{what}: rows at the slabs' edges off by "
+              f"{o['rms_slab_edge_rows']}, others {o['rms_other_rows']}")
+    dl = float(np.abs(hd["losses"] / ref_hd["losses"] - 1).max())
+    d = hd["deno"] - ref_hd["deno"]
+    drms = float(np.sqrt(np.mean(d ** 2)))
+    p, pr = psnr(clean_hd, hd["deno"]), psnr(clean_hd, ref_hd["deno"])
+    pn = psnr(clean_hd, f1080[0].cpu().numpy())
+    print(f"spatial split D=2 1080p: loss {hd['losses'][0]:.2f} -> "
+          f"{hd['losses'][-1]:.2f}, against unsplit worst loss rel {dl:.3e}, "
+          f"frame rms {drms:.3e}, psnr noisy {pn:.4f} split {p:.4f} unsplit "
+          f"{pr:.4f} dB; peak device memory of the step split "
+          f"{hd['peak_gib']:.3f} GiB, unsplit {ref_hd['peak_gib']:.3f} GiB",
+          flush=True)
+    check(dl <= TRAIN_LOSS_RTOL, f"split 1080p: losses off by {dl}")
+    check(abs(p - pr) <= TRAIN_PSNR_TOL, f"split 1080p: psnr off by {p - pr}")
+    check(drms <= ROUTES_DENO_RMS, f"split 1080p: frame rms off by {drms}")
+    check(p - pn > MIN_GAIN_DB, f"split 1080p: denoising gain {p - pn} dB")
+    out["split D=2 1080p"] = {"worst_loss_rel_err": dl,
+                              "rms_denoised_diff": drms, "psnr": p,
+                              "psnr_unsplit": pr, "psnr_noisy": pn,
+                              "peak_gib": hd["peak_gib"],
+                              "peak_gib_unsplit": ref_hd["peak_gib"]}
+    unsplit_serve = make_denoise(hd["model"], residual_model=True)
+    for impl, y in served.items():
+        err = float((y - unsplit_serve(f1080[0], eval_impl=impl)).abs().max())
+        print(f"spatial serve 1080p D=2 {impl}: max|split - unsplit| "
+              f"{err:.3e}", flush=True)
+        check(err == 0, f"split serving {impl}: off by {err}")
+        out[f"serve 1080p D=2 {impl}"] = {"max_abs_diff_unsplit": err}
+
+    # where a split frame's time goes (the steps train on: each call is
+    # another 20 updates of the same frame)
+    for what, r in (("unsplit 540p bf16", ref[bf16]),
+                    ("split D=2 540p bf16", runs["split D=2 bfloat16"][2]),
+                    ("split D=4 540p bf16", runs["split D=4 bfloat16"][2]),
+                    ("unsplit 1080p bf16", ref_hd),
+                    ("split D=2 1080p bf16", hd)):
+        frame = f1080 if "1080p" in what else f540
+        prof = profile_call(torch, lambda: r["step"](r["state"], *frame),
+                            iters=1 if "1080p" in what else 2, top=8)
+        out[f"time {what}"] = prof
+        print(f"spatial time {what}: " + json.dumps(prof), flush=True)
+    prof = profile_call(torch, lambda: make_denoise(
+        hd["model"], residual_model=True, spatial_mesh=mesh2)(f1080[0]),
+        iters=5)
+    out["time serve 1080p D=2 affine"] = prof
+    print("spatial time serve 1080p D=2 affine: " + json.dumps(prof),
+          flush=True)
+    out["backward_from_the_same_forward"] = grads
+    elapsed = time.perf_counter() - t_phase
+    out["phase_s"] = elapsed
+    print(f"phase time: spatial split {elapsed:.1f} s", flush=True)
+    check(elapsed <= SPATIAL_PHASE_S,
+          f"the spatial phase took {elapsed} s (limit {SPATIAL_PHASE_S})")
+    return launches, out
+
+
 def main():
     if not (REPO / "frame2frame_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke: the port's package frame2frame_tpu_torch is not "
@@ -2560,6 +2981,10 @@ def main():
         rows = kernel_phase(torch, F, fs, cuda_time_ms)
         rows.update(train_kernel_phase(torch, F, fs, cuda_time_ms))
         t0 = time.perf_counter()
+        windows = spatial_kernel_phase(torch, fs, cuda_time_ms)
+        print(f"phase time: windowed kernels {time.perf_counter() - t0:.1f} "
+              "s", flush=True)
+        t0 = time.perf_counter()
         rows.update(ends_kernel_phase(torch, F, fe, cuda_time_ms))
         print(f"phase time: end kernels {time.perf_counter() - t0:.1f} s",
               flush=True)
@@ -2588,6 +3013,8 @@ def main():
         stream_launches, stream = streaming_phase(torch, fs, psnr, variables)
         print(f"phase time: streaming loop {time.perf_counter() - t0:.1f} s",
               flush=True)
+        torch.cuda.empty_cache()
+        spatial_launches, spatial = spatial_phase(torch, fs, psnr, variables)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -2598,12 +3025,13 @@ def main():
     # engine takes by itself; flow: the flat route fed by AsyncFlowSolver;
     # conv_<impl>: the engine on a conv_impl route; stream: the CLI's loop
     # on the flat route with AsyncFlowSolver; stream_pallas: the loop on
-    # the "pallas" route), and on no other path
+    # the "pallas" route; spatial: the H-split fine-tune and serving), and on
+    # no other path
     ends = ("flat", "flow", "stream")
-    fused = ("training",) + ends
+    fused = ("training",) + ends + ("spatial",)
     conv_paths = tuple(f"conv_{impl}" for impl in CONV_ROUTES)
     paths = {"fwd_layer": ("serving",) + fused,
-             "fwd_layer_eval": ("serving",),
+             "fwd_layer_eval": ("serving", "spatial"),
              "fwd_layer_train": fused, "bwd_layer": fused,
              "first_conv": ends, "last_loss_fwd": ends,
              "last_loss_bwd": ends, "first_dw": ends,
@@ -2614,6 +3042,7 @@ def main():
                "flat": flat_launches, "flow": flow_launches,
                "stream": stream_launches["stream"],
                "stream_pallas": stream_launches["stream_pallas"],
+               "spatial": spatial_launches,
                **{f"conv_{impl}": conv_launches[impl]
                   for impl in CONV_ROUTES}}
     for name, on in paths.items():
@@ -2639,10 +3068,12 @@ def main():
             "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],
-            "library_ms": main_row["library_ms"], "configs": cfgs})
+            "library_ms": main_row["library_ms"], "configs": cfgs,
+            **windows.get(name, {})})
     print(json.dumps({"kernels": kernels, "serving": timings,
                       "training": training, "flow": flow,
-                      "conv_impl": conv_impl, "streaming": stream}))
+                      "conv_impl": conv_impl, "streaming": stream,
+                      "spatial": spatial}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -913,7 +913,7 @@ __device__ __forceinline__ bool dw_pixel(const DwArgs& a, const DwTile& t,
   const int hy = p / COLS, hx = p - hy * COLS;
   const int y = t.y0 + hy - HALO, x = t.x0 + hx - HALO;
   pix = (t.row0 + y) * a.W + x;
-  return f2f::row_in_image(y, a.H) && x >= 0 && x < a.W;
+  return f2f::row_in(y, 0, a.H) && x >= 0 && x < a.W;
 }
 
 // The tile's nch chunks of 8 channels a pixel, from channel c0 of rows of

@@ -185,10 +185,13 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Whether image row y is a row of the image: the one test of row validity
-// of the backward kernels, which a row window of a split frame can replace.
-__device__ __forceinline__ bool row_in_image(int y, int H) {
-  return y >= 0 && y < H;
+// Whether row y lies in the row window [lo, hi): the one test of row
+// validity of the kernels. A whole image is the window [0, H); a slab of a
+// frame split by rows (its body and one halo row above and below) has the
+// window of its rows that are rows of the frame, and the window of its body
+// rows among them, where a sum counts each row of the frame once.
+__device__ __forceinline__ bool row_in(int y, int lo, int hi) {
+  return y >= lo && y < hi;
 }
 
 // out[i] = sum over rows r of partial[r * n + i], in row order, in double.
@@ -210,10 +213,13 @@ inline int finish(const float* partial, int rows, int n, float* out,
 
 // How many blocks of one kernel the current device holds at once, asked of
 // the runtime once per kernel and device: the occupancy query and the
-// shared-memory attribute cost the host more than the launch itself.
+// shared-memory attribute cost the host more than the launch itself. One
+// slot a device, 0 until asked (the slabs of a frame split over several
+// cards alternate devices launch by launch); every Resident is static, so
+// its slots start at zero.
+constexpr int kMaxDevices = 64;
 struct Resident {
-  std::atomic<int> dev{-1};
-  std::atomic<int> blocks{0};
+  std::atomic<int> blocks[kMaxDevices];
 };
 
 // *grid = the persistent grid of `kern` over ntiles tiles: the resident
@@ -225,7 +231,9 @@ int persistent_grid(K kern, int threads, int smem_bytes, long ntiles,
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
-  if (cache->dev.load() != dev) {
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  long n = cache->blocks[dev].load();
+  if (n == 0) {
     e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_bytes);
     if (e != cudaSuccess) return (int)e;
@@ -235,10 +243,9 @@ int persistent_grid(K kern, int threads, int smem_bytes, long ntiles,
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
                                                       smem_bytes);
     if (e != cudaSuccess) return (int)e;
-    cache->blocks.store(sms * (per_sm > 0 ? per_sm : 1));
-    cache->dev.store(dev);
+    n = sms * (per_sm > 0 ? per_sm : 1);
+    cache->blocks[dev].store((int)n);
   }
-  long n = cache->blocks.load();
   if (ntiles < n) n = ntiles;
   if (max_blocks > 0 && max_blocks < n) n = max_blocks;
   *grid = (int)n;

@@ -27,6 +27,16 @@
 // rounded to bf16 on either chain, as the TPU's matrix unit rounds them at
 // default precision.
 //
+// The *_window entry points take a row window for a slab of a frame split
+// by rows (ops/fused_spatial.py): the operand is zero at rows outside
+// [lo, hi), as at the image's border, and the training sums count rows
+// [slo, shi) only, the slab's body rows that are rows of the frame. This is
+// the valid_bounds input of the same TPU kernels. The input's tensor map
+// spans rows [lo, hi) only, so TMA's zero fill pads the window as it pads
+// the image; the prologue and the f32 chain's conversion test the same
+// window. The entry points without a window run the same body with the
+// window [0, H).
+//
 // Bound at 540p (1 x 540 x 960 x 64, bf16 storage), per layer and frame:
 //   bytes      2 * 540*960*64 * 2    = 132.7 MB  -> 39.6 us at 3.35 TB/s;
 //   operations 2 * 540*960 * 64*64*9 = 38.2 GFLOP -> 38.6 us at 989 TFLOP/s.
@@ -158,6 +168,8 @@ struct FwdArgs {
   T* out;                       // (B, H, W, 64)
   float* partial;               // (blocks, 2, 64) EPI_STATS
   int B, H, W, tiles_y, tiles_x;
+  int lo, hi;                   // rows of the operand: its row window
+  int slo, shi;                 // rows that EPI_STATS sums
 };
 
 // --- mbarriers, named barriers ---------------------------------------------
@@ -317,24 +329,24 @@ __device__ __forceinline__ FTile ftile_at(unsigned tile, unsigned tiles_y,
 }
 
 // Halo pixel p of a tile: its image coordinates and whether it lies in the
-// image.
-__device__ __forceinline__ bool fhalo_pixel(const FTile& tl, int p, int H,
-                                            int W, int& y, int& x) {
+// operand: in the row window [lo, hi) and the image's columns.
+__device__ __forceinline__ bool fhalo_pixel(const FTile& tl, int p, int lo,
+                                            int hi, int W, int& y, int& x) {
   const int hy = p / HW, hx = p - hy * HW;
   y = tl.y0 + hy - 1;
   x = tl.x0 + hx - 1;
-  return y >= 0 && y < H && x >= 0 && x < W;
+  return row_in(y, lo, hi) && x >= 0 && x < W;
 }
 
 constexpr int PER_THREAD = (F_CHUNKS + 127) / 128;  // chunks of 128 threads
 
 // bf16 chain, PRO_AFFINE, thread ct of a consumer warpgroup: relu(s * z + b)
-// in place on its chunks of the landed halo tile, in the image; the zeros
-// outside stay zeros.
+// in place on its chunks of the landed halo tile, in the operand's rows
+// [lo, hi); the zeros outside stay zeros.
 __device__ __forceinline__ void prologue_in_place(unsigned char* st,
                                                   const float* vs,
-                                                  const FTile& tl, int H,
-                                                  int W, int ct) {
+                                                  const FTile& tl, int lo,
+                                                  int hi, int W, int ct) {
   const int chunk = ct & 7;
   float ps[8], pb[8];
 #pragma unroll
@@ -352,7 +364,7 @@ __device__ __forceinline__ void prologue_in_place(unsigned char* st,
     for (int i = 0; i < NB; ++i) {
       const int e = ct + (i0 + i) * 128;
       int y, x;
-      inside[i] = e < F_CHUNKS && fhalo_pixel(tl, e >> 3, H, W, y, x);
+      inside[i] = e < F_CHUNKS && fhalo_pixel(tl, e >> 3, lo, hi, W, y, x);
       if (inside[i])
         c[i].u = *reinterpret_cast<const uint4*>(st + swz(e >> 3, chunk * 8));
     }
@@ -372,12 +384,13 @@ __device__ __forceinline__ void prologue_in_place(unsigned char* st,
 
 // f32 chain, thread ct of a consumer warpgroup: its chunks of the landed f32
 // halo tile (256 bytes a pixel) into the warpgroup's stage, after the
-// prologue, rounded to bf16, zeros outside the image.
+// prologue, rounded to bf16, zeros outside the operand's rows [lo, hi) and
+// the image's columns.
 template <int PRO>
 __device__ __forceinline__ void convert_f32(unsigned char* st,
                                             const unsigned char* land,
                                             const float* vs, const FTile& tl,
-                                            int H, int W, int ct) {
+                                            int lo, int hi, int W, int ct) {
   const int chunk = ct & 7;
   float ps[8], pb[8];
   if constexpr (PRO == PRO_AFFINE) {
@@ -397,7 +410,7 @@ __device__ __forceinline__ void convert_f32(unsigned char* st,
     for (int i = 0; i < NB; ++i) {
       const int e = ct + (i0 + i) * 128;
       int y, x;
-      inside[i] = e < F_CHUNKS && fhalo_pixel(tl, e >> 3, H, W, y, x);
+      inside[i] = e < F_CHUNKS && fhalo_pixel(tl, e >> 3, lo, hi, W, y, x);
       if (inside[i]) {
         const float4* q = reinterpret_cast<const float4*>(
             land + (e >> 3) * (C * 4) + chunk * 32);
@@ -567,7 +580,7 @@ conv3x3_fwd(const FwdArgs<T> a, const __grid_constant__ CUtensorMap map,
         const FTile tl = tile_of(i);
         mbar_expect_tx(bar, HALO_BYTES);
         tma_load_4d((uint32_t)__cvta_generic_to_shared(stage(i)), &map, bar,
-                    0, tl.x0 - 1, tl.y0 - 1, tl.bi);
+                    0, tl.x0 - 1, tl.y0 - 1 - a.lo, tl.bi);
       }
     }
     if (!BF16 && pt == 0) {  // the f32 tiles through the one landing zone
@@ -577,7 +590,7 @@ conv3x3_fwd(const FwdArgs<T> a, const __grid_constant__ CUtensorMap map,
         const FTile tl = tile_of(i);
         mbar_expect_tx(bar, F_LAND);
         tma_load_4d((uint32_t)__cvta_generic_to_shared(land), &map, bar, 0,
-                    tl.x0 - 1, tl.y0 - 1, tl.bi);
+                    tl.x0 - 1, tl.y0 - 1 - a.lo, tl.bi);
       }
     }
     return;
@@ -605,13 +618,13 @@ conv3x3_fwd(const FwdArgs<T> a, const __grid_constant__ CUtensorMap map,
     if constexpr (BF16) {
       mbar_wait(full0 + 8 * st, (i / F_NST) & 1);
       if constexpr (PRO == PRO_AFFINE) {
-        prologue_in_place(hs, vs, tl, H, W, ct);
+        prologue_in_place(hs, vs, tl, a.lo, a.hi, W, ct);
         named_sync(1 + wg, 128);
       }
     } else {
       named_sync(1 + wg, 128);  // its last tile's fragments are read
       mbar_wait(landed0 + 8 * wg, (i / F_CONSUMERS) & 1);
-      convert_f32<PRO>(hs, land, vs, tl, H, W, ct);
+      convert_f32<PRO>(hs, land, vs, tl, a.lo, a.hi, W, ct);
       named_sync(1 + wg, 128);
       // the landing zone's next writer is the TMA engine (the async proxy)
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -654,7 +667,7 @@ conv3x3_fwd(const FwdArgs<T> a, const __grid_constant__ CUtensorMap map,
           }
           if constexpr (SUMS) {
             const int y = tl.y0 + RPW * wq + j, x = tl.x0 + g + 8 * half;
-            if (y >= H || x >= W) continue;  // outside the image
+            if (!row_in(y, a.slo, a.shi) || x >= W) continue;  // not summed
             s0[n8][0] += v0;
             s0[n8][1] += v1;
             s1[n8][0] = fmaf(v0, v0, s1[n8][0]);
@@ -763,16 +776,19 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// The map of a (B, H, W, 64) tensor, bf16 or f32, with a bh x bw pixel box,
-// encoded at every launch: two encodings cost the host less than the
-// measurement's spread around a wrapper call (36.4 against 37.8 us with
-// maps reused; chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W).
-int tensor_map(const void* ptr, bool f32, int B, int H, int W, int bw,
-               int bh, CUtensorMap* map) {
+// The map of rows [lo, hi) of a (B, H, W, 64) tensor, bf16 or f32, with a
+// bh x bw pixel box: its row 0 is the tensor's row lo, and TMA fills the
+// rows outside the window with zeros. Encoded at every launch: two
+// encodings cost the host less than the measurement's spread around a
+// wrapper call (36.4 against 37.8 us with maps reused; chip_smoke.py,
+// NVIDIA H100 80GB HBM3, 700 W).
+int tensor_map(const void* ptr, bool f32, int B, int H, int W, int lo,
+               int hi, int bw, int bh, CUtensorMap* map) {
   EncodeTiled enc = encoder();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
   const cuuint64_t px = f32 ? C * 4 : C * 2;  // bytes a pixel
+  const cuuint64_t dims[4] = {C, (cuuint64_t)W, (cuuint64_t)(hi - lo),
+                              (cuuint64_t)B};
   const cuuint64_t strides[3] = {px, (cuuint64_t)W * px,
                                  (cuuint64_t)H * W * px};
   const cuuint32_t box[4] = {C, (cuuint32_t)bw, (cuuint32_t)bh, 1};
@@ -781,17 +797,27 @@ int tensor_map(const void* ptr, bool f32, int B, int H, int W, int bw,
   const CUresult r = enc(
       map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
                : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-      4, const_cast<void*>(ptr), dims, strides, box, elem,
+      4,
+      const_cast<char*>(static_cast<const char*>(ptr)) + (size_t)lo * W * px,
+      dims, strides, box, elem,
       CU_TENSOR_MAP_INTERLEAVE_NONE,
       f32 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// Rows: the operand's window [lo, hi), the summed rows [slo, shi).
+struct Rows {
+  int lo, hi, slo, shi;
+};
+
 template <typename T, int PRO, int EPI>
 int forward(const void* in, const void* w, const float* s, const float* b,
             void* out, float* partial, float* stats, int max_blocks, int B,
-            int H, int W, void* stream) {
+            int H, int W, Rows r, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || r.lo < 0 || r.hi > H || r.lo >= r.hi ||
+      r.slo < 0 || r.shi > H)
+    return (int)cudaErrorInvalidValue;
   static Resident resident;  // one for each instantiation of the kernel
   auto kern = conv3x3_fwd<T, PRO, EPI>;
   FwdArgs<T> a = {};
@@ -805,6 +831,10 @@ int forward(const void* in, const void* w, const float* s, const float* b,
   a.W = W;
   a.tiles_y = (H + TH - 1) / TH;
   a.tiles_x = (W + TW - 1) / TW;
+  a.lo = r.lo;
+  a.hi = r.hi;
+  a.slo = r.slo;
+  a.shi = r.shi;
   const long ntiles = (long)B * a.tiles_y * a.tiles_x;
   if (ntiles >= (1l << 31)) return (int)cudaErrorInvalidValue;
   int grid = 0;
@@ -813,8 +843,9 @@ int forward(const void* in, const void* w, const float* s, const float* b,
   if (rc != 0 || grid == 0) return rc;
   constexpr bool F32 = std::is_same<T, float>::value;
   CUtensorMap map = {}, omap = {};
-  rc = tensor_map(in, F32, B, H, W, HW, HH, &map);
-  if (rc == 0 && !F32) rc = tensor_map(out, false, B, H, W, TW, TH, &omap);
+  rc = tensor_map(in, F32, B, H, W, r.lo, r.hi, HW, HH, &map);
+  if (rc == 0 && !F32)
+    rc = tensor_map(out, false, B, H, W, 0, H, TW, TH, &omap);
   if (rc != 0) return rc;
   kern<<<grid, F_THREADS, F_SMEM, (cudaStream_t)stream>>>(a, map, omap);
   rc = (int)cudaGetLastError();
@@ -826,38 +857,74 @@ int forward(const void* in, const void* w, const float* s, const float* b,
 
 extern "C" {
 
-// Each returns a cudaError_t code: 0 on launches that were accepted.
+// Each returns a cudaError_t code: 0 on launches that were accepted. The
+// *_window forms take the operand's row window [lo, hi) (0 <= lo < hi <= H)
+// and the training form the rows it sums, [slo, shi); the wrappers call
+// these only. The others run the same bodies with the window [0, H): they
+// keep the entry points that scripts/torch_kernel_ab.py calls on this tree
+// and on a parent tree that has no window.
+int f2f_fwd_layer_window(const void* z_prev, int is_f32, const void* w,
+                         const float* s, const float* b, void* z, int B, int H,
+                         int W, int lo, int hi, void* stream) {
+  const Rows r = {lo, hi, 0, 0};
+  return is_f32 ? forward<float, PRO_AFFINE, EPI_NONE>(
+                      z_prev, w, s, b, z, nullptr, nullptr, 0, B, H, W, r,
+                      stream)
+                : forward<__nv_bfloat16, PRO_AFFINE, EPI_NONE>(
+                      z_prev, w, s, b, z, nullptr, nullptr, 0, B, H, W, r,
+                      stream);
+}
+
 int f2f_fwd_layer(const void* z_prev, int is_f32, const void* w,
                   const float* s, const float* b, void* z, int B, int H, int W,
                   void* stream) {
-  return is_f32 ? forward<float, PRO_AFFINE, EPI_NONE>(
-                      z_prev, w, s, b, z, nullptr, nullptr, 0, B, H, W, stream)
-                : forward<__nv_bfloat16, PRO_AFFINE, EPI_NONE>(
-                      z_prev, w, s, b, z, nullptr, nullptr, 0, B, H, W, stream);
+  return f2f_fwd_layer_window(z_prev, is_f32, w, s, b, z, B, H, W, 0, H,
+                              stream);
 }
 
 // stats: (2, 64) f32 out; partial: (max_blocks, 2, 64) f32 scratch.
+int f2f_fwd_layer_train_window(const void* z_prev, int is_f32, const void* w,
+                               const float* s, const float* b, void* z,
+                               float* stats, float* partial, int max_blocks,
+                               int B, int H, int W, int lo, int hi, int slo,
+                               int shi, void* stream) {
+  if (max_blocks <= 0) return (int)cudaErrorInvalidValue;
+  const Rows r = {lo, hi, slo, shi};
+  return is_f32
+             ? forward<float, PRO_AFFINE, EPI_STATS>(z_prev, w, s, b, z,
+                                                     partial, stats, max_blocks,
+                                                     B, H, W, r, stream)
+             : forward<__nv_bfloat16, PRO_AFFINE, EPI_STATS>(
+                   z_prev, w, s, b, z, partial, stats, max_blocks, B, H, W, r,
+                   stream);
+}
+
 int f2f_fwd_layer_train(const void* z_prev, int is_f32, const void* w,
                         const float* s, const float* b, void* z, float* stats,
                         float* partial, int max_blocks, int B, int H, int W,
                         void* stream) {
-  if (max_blocks <= 0) return (int)cudaErrorInvalidValue;
-  return is_f32
-             ? forward<float, PRO_AFFINE, EPI_STATS>(z_prev, w, s, b, z,
-                                                     partial, stats, max_blocks,
-                                                     B, H, W, stream)
-             : forward<__nv_bfloat16, PRO_AFFINE, EPI_STATS>(
-                   z_prev, w, s, b, z, partial, stats, max_blocks, B, H, W,
-                   stream);
+  return f2f_fwd_layer_train_window(z_prev, is_f32, w, s, b, z, stats,
+                                    partial, max_blocks, B, H, W, 0, H, 0, H,
+                                    stream);
+}
+
+int f2f_fwd_layer_eval_window(const void* a_prev, int is_f32, const void* w,
+                              const float* s, const float* b, void* a, int B,
+                              int H, int W, int lo, int hi, void* stream) {
+  const Rows r = {lo, hi, 0, 0};
+  return is_f32 ? forward<float, PRO_NONE, EPI_AFFINE>(
+                      a_prev, w, s, b, a, nullptr, nullptr, 0, B, H, W, r,
+                      stream)
+                : forward<__nv_bfloat16, PRO_NONE, EPI_AFFINE>(
+                      a_prev, w, s, b, a, nullptr, nullptr, 0, B, H, W, r,
+                      stream);
 }
 
 int f2f_fwd_layer_eval(const void* a_prev, int is_f32, const void* w,
                        const float* s, const float* b, void* a, int B, int H,
                        int W, void* stream) {
-  return is_f32 ? forward<float, PRO_NONE, EPI_AFFINE>(
-                      a_prev, w, s, b, a, nullptr, nullptr, 0, B, H, W, stream)
-                : forward<__nv_bfloat16, PRO_NONE, EPI_AFFINE>(
-                      a_prev, w, s, b, a, nullptr, nullptr, 0, B, H, W, stream);
+  return f2f_fwd_layer_eval_window(a_prev, is_f32, w, s, b, a, B, H, W, 0, H,
+                                   stream);
 }
 
 const char* f2f_error_string(int code) {

@@ -13,6 +13,15 @@
 //   stats_prev = sum(gp), sum(gp * zhat_prev),  gp = da_prev * [a_prev > 0],
 //                from the f32 da_prev before it is rounded (not first_layer)
 //
+// f2f_bwd_layer_window takes the row windows of a slab of a frame split by
+// rows (ops/fused_spatial.py), the valid_bounds input of the TPU kernel: dz
+// is zero at rows outside [lo, hi), as at the image's border, and a_prev
+// outside [slo, shi), the slab's body rows that are rows of the frame; the
+// BN-backward sums count rows [slo, shi). So dW pairs each body row's
+// a_prev with dz at every row, halo rows included, and a sum over the slabs
+// counts each row of the frame once. da_prev is written at every row.
+// f2f_bwd_layer runs the same body with both windows [0, H).
+//
 // One persistent kernel computes all three in one pass over the frame, as
 // the TPU kernel does in one pallas_call, and one finish_sums adds the
 // blocks' partial rows (stats_prev and dW side by side) in block order, in
@@ -111,8 +120,14 @@ __device__ __forceinline__ bool halo_pixel(const Tile& tl, int p, int H,
   const int hy = p / HW, hx = p - hy * HW;
   y = tl.y0 + hy - 1;
   x = tl.x0 + hx - 1;
-  return row_in_image(y, H) && x >= 0 && x < W;
+  return row_in(y, 0, H) && x >= 0 && x < W;
 }
+
+// The rows of the windows: dz at [lo, hi), a_prev and the sums at
+// [slo, shi).
+struct Rows {
+  int lo, hi, slo, shi;
+};
 
 // bf16 chain, by warps 8..11: the halo tiles of g, z_i and z_prev into one
 // stage, 16 bytes a copy, zeros outside the image.
@@ -165,22 +180,24 @@ __device__ __forceinline__ void prologue8(const float* vs, int chunk,
 }
 
 // bf16 chain, by warps 8..11, in place: the stage's g halo becomes dz, its
-// z_i halo a_prev, both zeros outside the image. A thread converts the
-// chunks it copied itself, so its own cp_async_wait suffices.
+// z_i halo a_prev, both zeros outside the image and their windows. A thread
+// converts the chunks it copied itself, so its own cp_async_wait suffices.
 __device__ __forceinline__ void prologue_in_place(unsigned char* st,
                                                   const float* vs,
                                                   const Tile& tl, int H,
-                                                  int W) {
+                                                  int W, const Rows& r) {
   const int chunk = threadIdx.x & 7;
   for (int e = threadIdx.x - BW_STAGER0; e < BW_HALO_CHUNKS;
        e += BW_STAGERS) {
     const int p = e >> 3;
     int y, x;
     const bool in = halo_pixel(tl, p, H, W, y, x);
+    const bool in_dz = in && row_in(y, r.lo, r.hi);
+    const bool in_ap = in && row_in(y, r.slo, r.shi);
     uint4* dz = reinterpret_cast<uint4*>(st + swz(p, chunk * 8));
     uint4* ap = reinterpret_cast<uint4*>(st + HALO_BYTES + swz(p, chunk * 8));
     uint4 ud = make_uint4(0u, 0u, 0u, 0u), ua = ud;
-    if (in) {
+    if (in_dz || in_ap) {
       Chunk<__nv_bfloat16> cg, cz, cp;
       cg.u = *dz;
       cz.u = *ap;
@@ -191,8 +208,8 @@ __device__ __forceinline__ void prologue_in_place(unsigned char* st,
       unpack(cz, z);
       unpack(cp, pv);
       prologue8(vs, chunk, v, z, pv);
-      ud = pack8(v);
-      ua = pack8(pv);
+      if (in_dz) ud = pack8(v);
+      if (in_ap) ua = pack8(pv);
     }
     *dz = ud;
     *ap = ua;
@@ -200,18 +217,22 @@ __device__ __forceinline__ void prologue_in_place(unsigned char* st,
 }
 
 // f32 chain, by warps 8..11: dz and a_prev from device memory into the
-// stage's two halo tiles, through registers.
+// stage's two halo tiles, through registers, zeros outside the image and
+// their windows.
 __device__ __forceinline__ void prologue_loads(
     unsigned char* st, const float* vs, const float* __restrict__ g,
     const float* __restrict__ zi, const float* __restrict__ zp,
-    const Tile& tl, int H, int W) {
+    const Tile& tl, int H, int W, const Rows& r) {
   const int chunk = threadIdx.x & 7;
   for (int e = threadIdx.x - BW_STAGER0; e < BW_HALO_CHUNKS;
        e += BW_STAGERS) {
     const int p = e >> 3;
     int y, x;
     uint4 ud = make_uint4(0u, 0u, 0u, 0u), ua = ud;
-    if (halo_pixel(tl, p, H, W, y, x)) {
+    const bool in = halo_pixel(tl, p, H, W, y, x);
+    const bool in_dz = in && row_in(y, r.lo, r.hi);
+    const bool in_ap = in && row_in(y, r.slo, r.shi);
+    if (in_dz || in_ap) {
       const size_t off = (((size_t)tl.bi * H + y) * W + x) * C + chunk * 8;
       Chunk<float> cg, cz, cp;
       ldg(cg, g + off);
@@ -222,8 +243,8 @@ __device__ __forceinline__ void prologue_loads(
       unpack(cz, z);
       unpack(cp, pv);
       prologue8(vs, chunk, v, z, pv);
-      ud = pack8(v);
-      ua = pack8(pv);
+      if (in_dz) ud = pack8(v);
+      if (in_ap) ua = pack8(pv);
     }
     *reinterpret_cast<uint4*>(st + swz(p, chunk * 8)) = ud;
     *reinterpret_cast<uint4*>(st + HALO_BYTES + swz(p, chunk * 8)) = ua;
@@ -252,7 +273,7 @@ bwd_layer_k(const T* __restrict__ g, const T* __restrict__ zi,
             const T* __restrict__ zp, const __nv_bfloat16* __restrict__ w,
             const float* __restrict__ vec, T* __restrict__ da,
             float* __restrict__ partial, int B, int H, int W, int tiles_y,
-            int tiles_x) {
+            int tiles_x, const Rows r) {
   constexpr bool PIPE = sizeof(T) == 2;  // cp.async copies of the raw tiles
   constexpr int STAGE = PIPE ? BW_STAGE_BYTES : 2 * HALO_BYTES;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -316,9 +337,9 @@ bwd_layer_k(const T* __restrict__ g, const T* __restrict__ zi,
       stage_copies(stages, g, zi, zp, tl, H, W);
       cp_async_commit();
       cp_async_wait<0>();
-      prologue_in_place(stages, vs, tl, H, W);
+      prologue_in_place(stages, vs, tl, H, W, r);
     } else {
-      prologue_loads(stages, vs, g, zi, zp, tl, H, W);
+      prologue_loads(stages, vs, g, zi, zp, tl, H, W, r);
     }
   }
   __syncthreads();
@@ -364,6 +385,7 @@ bwd_layer_k(const T* __restrict__ g, const T* __restrict__ zi,
       }
 
       const int y = tl.y0 + row;
+      const bool summed = row_in(y, r.slo, r.shi);
       float* wred = red + warp * 2 * C;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -372,11 +394,12 @@ bwd_layer_k(const T* __restrict__ g, const T* __restrict__ zi,
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           const int x = tl.x0 + gq + 8 * half;
-          if (!row_in_image(y, H) || x >= W) continue;
+          if (!row_in(y, 0, H) || x >= W) continue;
           const size_t off = (((size_t)tl.bi * H + y) * W + x) * C + ch;
           const float v0 = ax[j][2 * half], v1 = ax[j][2 * half + 1];
           store2(da + off, v0, v1);
           if constexpr (STATS) {
+            if (!summed) continue;
             const float2 z = zprev2(st, (row + 1) * HW + 1 + gq + 8 * half,
                                     ch, zp, off);
             const float g0 =
@@ -440,9 +463,9 @@ bwd_layer_k(const T* __restrict__ g, const T* __restrict__ zi,
       const Tile tn = tile_at(next, tiles_y, tiles_x);
       if constexpr (PIPE) {
         cp_async_wait<0>();
-        prologue_in_place(sn, vs, tn, H, W);
+        prologue_in_place(sn, vs, tn, H, W, r);
       } else {
-        prologue_loads(sn, vs, g, zi, zp, tn, H, W);
+        prologue_loads(sn, vs, g, zi, zp, tn, H, W, r);
       }
     }
     __syncthreads();  // the next stage is ready, this one is free
@@ -470,7 +493,7 @@ bwd_layer_k(const T* __restrict__ g, const T* __restrict__ zi,
 template <typename T, bool STATS>
 int launch(const void* g, const void* z_i, const void* z_prev, const void* w,
            const float* vec, void* da, float* out, float* partial,
-           int max_blocks, int B, int H, int W, void* stream) {
+           int max_blocks, int B, int H, int W, const Rows& r, void* stream) {
   static Resident resident;  // one for each instantiation of the kernel
   auto kern = bwd_layer_k<T, STATS>;
   constexpr int smem = sizeof(T) == 2 ? BW_SMEM_BF16 : BW_SMEM_F32;
@@ -482,7 +505,7 @@ int launch(const void* g, const void* z_i, const void* z_prev, const void* w,
   kern<<<grid, BW_THREADS, smem, (cudaStream_t)stream>>>(
       static_cast<const T*>(g), static_cast<const T*>(z_i),
       static_cast<const T*>(z_prev), static_cast<const __nv_bfloat16*>(w), vec,
-      static_cast<T*>(da), partial, B, H, W, tiles_y, tiles_x);
+      static_cast<T*>(da), partial, B, H, W, tiles_y, tiles_x, r);
   if ((rc = (int)cudaGetLastError()) != 0) return rc;
   return finish(partial, grid, BW_N, out, stream);
 }
@@ -491,12 +514,12 @@ template <typename T>
 int backward(const void* g, const void* z_i, const void* z_prev,
              const void* w, const float* vec, int first_layer, void* da,
              float* out, float* partial, int max_blocks, int B, int H, int W,
-             void* stream) {
+             const Rows& r, void* stream) {
   return first_layer
              ? launch<T, false>(g, z_i, z_prev, w, vec, da, out, partial,
-                                max_blocks, B, H, W, stream)
+                                max_blocks, B, H, W, r, stream)
              : launch<T, true>(g, z_i, z_prev, w, vec, da, out, partial,
-                               max_blocks, B, H, W, stream);
+                               max_blocks, B, H, W, r, stream);
 }
 
 }  // namespace
@@ -506,19 +529,35 @@ extern "C" {
 // g, z_i, z_prev, da: (B, H, W, 64) bf16 or f32; w: (3, 3, 64, 64) HWIO bf16;
 // vec: (8, 64) f32; out: (2 * 64 + 9 * 64 * 64) f32, stats_prev (2, 64) (zeros
 // when first_layer) then dW (3, 3, 64, 64); partial: (max_blocks, 2 * 64 + 9
-// * 64 * 64) f32 scratch. Returns a cudaError_t code: 0 on launches that
-// were accepted.
+// * 64 * 64) f32 scratch; the windows: dz's rows [lo, hi) (0 <= lo < hi <=
+// H), a_prev's and the sums' rows [slo, shi). Returns a cudaError_t code: 0
+// on launches that were accepted.
+int f2f_bwd_layer_window(const void* g, const void* z_i, const void* z_prev,
+                         int is_f32, const void* w, const float* vec,
+                         int first_layer, void* da, float* out, float* partial,
+                         int max_blocks, int B, int H, int W, int lo, int hi,
+                         int slo, int shi, void* stream) {
+  if (max_blocks <= 0 || B <= 0 || H <= 0 || W <= 0 || lo < 0 || hi > H ||
+      lo >= hi || slo < 0 || shi > H)
+    return (int)cudaErrorInvalidValue;
+  const Rows r = {lo, hi, slo, shi};
+  return is_f32 ? backward<float>(g, z_i, z_prev, w, vec, first_layer, da,
+                                  out, partial, max_blocks, B, H, W, r, stream)
+                : backward<__nv_bfloat16>(g, z_i, z_prev, w, vec, first_layer,
+                                          da, out, partial, max_blocks, B, H,
+                                          W, r, stream);
+}
+
+// The same with both windows [0, H): the entry point that
+// scripts/torch_kernel_ab.py calls on this tree and on a parent tree
+// that has no window.
 int f2f_bwd_layer(const void* g, const void* z_i, const void* z_prev,
                   int is_f32, const void* w, const float* vec, int first_layer,
                   void* da, float* out, float* partial, int max_blocks, int B,
                   int H, int W, void* stream) {
-  if (max_blocks <= 0 || B <= 0 || H <= 0 || W <= 0)
-    return (int)cudaErrorInvalidValue;
-  return is_f32 ? backward<float>(g, z_i, z_prev, w, vec, first_layer, da,
-                                  out, partial, max_blocks, B, H, W, stream)
-                : backward<__nv_bfloat16>(g, z_i, z_prev, w, vec, first_layer,
-                                          da, out, partial, max_blocks, B, H,
-                                          W, stream);
+  return f2f_bwd_layer_window(g, z_i, z_prev, is_f32, w, vec, first_layer, da,
+                              out, partial, max_blocks, B, H, W, 0, H, 0, H,
+                              stream);
 }
 
 const char* f2f_error_string(int code) {

@@ -18,11 +18,19 @@ Two eval implementations (``eval_impl``):
 
 Frames are NHWC throughout; a batch is the batch dimension of one kernel
 launch per layer, its frames isolated by per-image SAME padding.
+
+``fused_train_apply_spatial`` and ``fused_eval_apply_spatial`` (the JAX
+package's functions of the same names) split the mid stack of one frame by
+rows over the devices of a mesh (``ops/fused_spatial.py``). The end convs
+run on the whole frame on the mesh's first device: in the JAX package they
+stay XLA ops that the SPMD partitioner splits, and the port has no
+partitioner.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..ops._common import conv2d, conv2d_input, conv2d_weight
 from ..ops.fused_stack import (
@@ -31,6 +39,11 @@ from ..ops.fused_stack import (
     fwd_layer,
     fwd_layer_eval,
     kernel_weights,
+)
+from ..ops.fused_spatial import (
+    eval_mid_stack_spatial,
+    fused_mid_stack_spatial,
+    pad_h,
 )
 from .dncnn import update_running_stats
 
@@ -122,11 +135,33 @@ def _affine_mid_stack(model, a1, store_dtype):
     return torch.addcmul(b[-1], cur, s[-1]).relu_()
 
 
+def _spatial_pad(a1, mesh):
+    """a1 (B, H, W, 64) with zero rows below, to ``pad_h(H, len(mesh))``
+    rows: the pad rows of the stack input are zeros, and their cotangent
+    is dropped."""
+    H = a1.shape[1]
+    return F.pad(a1, (0, 0, 0, 0, 0, pad_h(H, len(mesh)) - H))
+
+
+def _spatial_eval_mid_stack(model, a1, store_dtype, eval_impl, mesh):
+    """Either eval route's mid stack over the slabs of ``mesh``: a1 (B, H,
+    W, 64) -> the last activation, as the unsplit routes return it."""
+    H = a1.shape[1]
+    route = _eval_impl(eval_impl)
+    dtype = _eval_chain_dtype(eval_impl) if route == "act" else store_dtype
+    w, s, b = _mid_params(model)
+    return eval_mid_stack_spatial(w, s, b, _spatial_pad(a1, mesh), H, mesh,
+                                  dtype, route)[:, :H]
+
+
 @torch.no_grad()
-def _eval_forward(model, x, store_dtype, eval_impl):
+def _eval_forward(model, x, store_dtype, eval_impl, mesh=None):
     end_conv = _make_end_conv(store_dtype)
     a1 = torch.relu(end_conv(x, model.conv_in.weight))
-    if _eval_impl(eval_impl) == "act":
+    if mesh is not None:
+        a_out = _spatial_eval_mid_stack(model, a1, store_dtype, eval_impl,
+                                        mesh)
+    elif _eval_impl(eval_impl) == "act":
         a_out = _act_eval_mid_stack(model, a1, eval_impl)
     else:
         a_out = _affine_mid_stack(model, a1, store_dtype)
@@ -166,6 +201,34 @@ def fused_eval_apply(model, x, store_dtype=torch.bfloat16, eval_impl=None):
     if x.shape[0] != 1:
         raise ValueError(f"one frame expected, got a batch of {x.shape[0]}")
     return _eval_forward(model, x, store_dtype, eval_impl)
+
+
+def _spatial_mid_stack(mesh):
+    """``fused_train_apply``'s ``mid_stack`` over the slabs of ``mesh``."""
+    def mid_stack(ws, gammas, betas, a1, store_dtype):
+        H = a1.shape[1]
+        a_out, means, vars_ = fused_mid_stack_spatial(
+            ws, gammas, betas, _spatial_pad(a1, mesh), H, store_dtype, mesh)
+        return a_out[:, :H], means, vars_
+    return mid_stack
+
+
+def fused_train_apply_spatial(model, x, mesh, store_dtype=torch.bfloat16):
+    """``fused_train_apply`` with the mid stack of the frame split by rows
+    over ``mesh`` (a tuple of devices, ``parallel.spatial.make_space_mesh``;
+    the model and x on ``mesh[0]``): the one frame's semantics, BN batch
+    statistics over all its pixels (sync-BN)."""
+    return fused_train_apply(model, x, store_dtype,
+                             mid_stack=_spatial_mid_stack(mesh))
+
+
+def fused_eval_apply_spatial(model, x, mesh, store_dtype=torch.bfloat16,
+                             eval_impl=None):
+    """``fused_eval_apply`` with the mid stack of the frame split by rows
+    over ``mesh``, on either eval route."""
+    if x.shape[0] != 1:
+        raise ValueError(f"one frame expected, got a batch of {x.shape[0]}")
+    return _eval_forward(model, x, store_dtype, eval_impl, mesh)
 
 
 def fused_eval_apply_batch(model, x, store_dtype=torch.bfloat16,

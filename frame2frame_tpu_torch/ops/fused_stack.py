@@ -47,6 +47,17 @@ Every affine whose sign decides a ReLU mask is a rounded product plus a
 rounded sum (``z * s + b`` in PyTorch, ``affine()`` in the kernels), so the
 forward and the backward agree on every pixel, on either device.
 
+The four layer functions take ``valid_bounds``, the row-validity window of
+the TPU kernels, for a slab of a frame split by rows
+(``ops/fused_spatial.py``): ``(lo, hi, slo, shi)``. The operand
+(``relu(s * z_prev + b)``, the act route's input, the backward's dz) is zero
+at rows outside ``[lo, hi)``, as at the image's border; a_prev of dW and
+every sum over the pixels count rows ``[slo, shi)`` only, the slab's body
+rows among them, so that adding the slabs' sums counts each row of the frame
+once (``(lo, hi)`` alone sums the same rows as it reads). Outputs are
+written at every row. Without a window a layer computes what it computed
+before, with the same bits, as it does with the window ``(0, H)``.
+
 A wrapper given a CPU tensor computes the plain version; given a CUDA tensor
 it launches the kernel or raises. Each wrapper counts its launches in
 ``<wrapper>.launches``.
@@ -85,15 +96,48 @@ def _affine_from_stats(mean, var, gamma, beta):
     return s, beta - mean * s, rstd
 
 
-def fwd_layer_plain(z_prev, w, s, b):
+def rows_of(x, valid_bounds):
+    """``valid_bounds`` on ``x`` (B, H, W, 64) clipped to its rows: (lo, hi,
+    slo, shi), the operand's rows and the summed rows; None without a
+    window."""
+    if valid_bounds is None:
+        return None
+    H = x.shape[1]
+    vb = tuple(int(v) for v in valid_bounds)
+    lo, hi, slo, shi = vb if len(vb) == 4 else vb + vb
+    lo, hi = max(lo, 0), min(hi, H)
+    if lo >= hi:
+        raise ValueError(f"valid_bounds {tuple(valid_bounds)}: no row of "
+                         f"the {H} rows")
+    return lo, hi, max(slo, 0), min(shi, H)
+
+
+def _zero_outside(x, lo, hi):
+    """x with its rows outside [lo, hi) set to zero."""
+    rows = torch.arange(x.shape[1], device=x.device).view(1, -1, 1, 1)
+    return torch.where((rows >= lo) & (rows < hi), x, torch.zeros_like(x))
+
+
+def _operand(x, rows):
+    return x if rows is None else _zero_outside(x, rows[0], rows[1])
+
+
+def _summed(x, rows):
+    """The rows of x that a sum over the pixels counts."""
+    return x if rows is None else x[:, rows[2]:rows[3]]
+
+
+def fwd_layer_plain(z_prev, w, s, b, valid_bounds=None):
     """Plain version of ``fwd_layer``: f32 arithmetic, storage dtype out."""
     a = torch.relu(z_prev.float() * s.float() + b.float())
+    a = _operand(a, rows_of(z_prev, valid_bounds))
     return _conv_f32(a, w).to(z_prev.dtype).contiguous()
 
 
-def fwd_layer_eval_plain(a_prev, w, s, b):
+def fwd_layer_eval_plain(a_prev, w, s, b, valid_bounds=None):
     """Plain version of ``fwd_layer_eval``: f32 arithmetic, input dtype out."""
-    out = torch.relu(_conv_f32(a_prev.float(), w) * s.float() + b.float())
+    a = _operand(a_prev.float(), rows_of(a_prev, valid_bounds))
+    out = torch.relu(_conv_f32(a, w) * s.float() + b.float())
     return out.to(a_prev.dtype).contiguous()
 
 
@@ -127,61 +171,73 @@ def _checked(name, x, w, s, b):
 def _lib():
     lib = load("fused_stack")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.f2f_fwd_layer, lib.f2f_fwd_layer_eval):
+    for name in ("f2f_fwd_layer_window", "f2f_fwd_layer_eval_window"):
+        fn = getattr(lib, name)
         fn.restype = ci
-        fn.argtypes = [vp, ci, vp, vp, vp, vp, ci, ci, ci, vp]
-    lib.f2f_fwd_layer_train.restype = ci
-    lib.f2f_fwd_layer_train.argtypes = [vp, ci] + [vp] * 6 + [ci] * 4 + [vp]
+        fn.argtypes = [vp, ci, vp, vp, vp, vp] + [ci] * 5 + [vp]
+    lib.f2f_fwd_layer_train_window.restype = ci
+    lib.f2f_fwd_layer_train_window.argtypes = ([vp, ci] + [vp] * 6 + [ci] * 8
+                                               + [vp])
     _bind_error_string(lib)
     return lib
 
 
-def _launch(name, x, w, s, b):
-    """Run kernel ``f2f_<name>`` on CUDA tensors on the current device and
-    return its output, in x's dtype. Raises if the launch is refused."""
+def _full_rows(x, rows):
+    """``rows_of``'s window, or the whole image's: (0, H, 0, H)."""
+    return rows or (0, x.shape[1], 0, x.shape[1])
+
+
+def _launch(name, x, w, s, b, rows):
+    """Run kernel ``f2f_<name>_window`` with ``rows`` (``_full_rows``) on
+    CUDA tensors on the current device and return its output, in x's dtype.
+    Raises if the launch is refused."""
     _on_current_cuda(name, x)
     lib = _lib()
     wk = kernel_weights(w)
     out = torch.empty_like(x)
     B, H, W, _ = x.shape
-    rc = getattr(lib, f"f2f_{name}")(
-        x.data_ptr(), int(x.dtype == torch.float32), wk.data_ptr(),
-        s.data_ptr(), b.data_ptr(), out.data_ptr(), B, H, W,
-        torch.cuda.current_stream().cuda_stream)
+    args = (x.data_ptr(), int(x.dtype == torch.float32), wk.data_ptr(),
+            s.data_ptr(), b.data_ptr(), out.data_ptr(), B, H, W)
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = getattr(lib, f"f2f_{name}_window")(*args, *rows[:2], stream)
     _raise_on(lib, name, rc)
     return out
 
 
-def fwd_layer(z_prev, w, s, b):
+def fwd_layer(z_prev, w, s, b, valid_bounds=None):
     """One eval mid layer on the affine route.
 
     z_prev: (B, H, W, 64) bf16 or f32, the previous layer's raw conv output
     (or the first activation with s = 1, b = 0); w: (3, 3, 64, 64) HWIO;
-    s, b: (64,) f32, the previous layer's eval BN affine. Returns the raw conv
-    output z in z_prev's dtype (f32 accumulation)."""
+    s, b: (64,) f32, the previous layer's eval BN affine; valid_bounds: a
+    slab's row window (module docstring). Returns the raw conv output z in
+    z_prev's dtype (f32 accumulation)."""
     s, b = _checked("fwd_layer", z_prev, w, s, b)
     if z_prev.device.type == "cpu":
-        return fwd_layer_plain(z_prev, w, s, b)
-    out = _launch("fwd_layer", z_prev, w, s, b)
+        return fwd_layer_plain(z_prev, w, s, b, valid_bounds)
+    out = _launch("fwd_layer", z_prev, w, s, b,
+                  _full_rows(z_prev, rows_of(z_prev, valid_bounds)))
     fwd_layer.launches += 1
     return out
 
 
-def fwd_layer_eval(a_prev, w, s, b):
+def fwd_layer_eval(a_prev, w, s, b, valid_bounds=None):
     """One eval mid layer on the act route.
 
     a_prev: (B, H, W, 64) bf16 or f32, post-activation; w: (3, 3, 64, 64)
-    HWIO; s, b: (64,) f32, this layer's eval BN affine. Returns
-    relu(s * conv + b) in a_prev's dtype (f32 accumulation)."""
+    HWIO; s, b: (64,) f32, this layer's eval BN affine; valid_bounds: a
+    slab's row window. Returns relu(s * conv + b) in a_prev's dtype (f32
+    accumulation)."""
     s, b = _checked("fwd_layer_eval", a_prev, w, s, b)
     if a_prev.device.type == "cpu":
-        return fwd_layer_eval_plain(a_prev, w, s, b)
-    out = _launch("fwd_layer_eval", a_prev, w, s, b)
+        return fwd_layer_eval_plain(a_prev, w, s, b, valid_bounds)
+    out = _launch("fwd_layer_eval", a_prev, w, s, b,
+                  _full_rows(a_prev, rows_of(a_prev, valid_bounds)))
     fwd_layer_eval.launches += 1
     return out
 
 
-def fwd_layer_train_plain(z_prev, w, s, b, mma_bf16=False):
+def fwd_layer_train_plain(z_prev, w, s, b, mma_bf16=False, valid_bounds=None):
     """Plain version of ``fwd_layer_train``: (z, stats (2, 64) f32).
 
     f32 arithmetic with the rounding points of the TPU kernel run in
@@ -190,10 +246,13 @@ def fwd_layer_train_plain(z_prev, w, s, b, mma_bf16=False):
     also rounds both dot operands to bf16, as the CUDA kernel's matrix unit
     takes them on either chain."""
     dt = z_prev.dtype
-    a = torch.relu(z_prev.float() * s.float() + b.float())
+    rows = rows_of(z_prev, valid_bounds)
+    a = _operand(torch.relu(z_prev.float() * s.float() + b.float()), rows)
     acc = _conv_f32(_round_operand(a, mma_bf16),
                     _round_operand(w.to(dt), mma_bf16))
-    stats = torch.stack([acc.sum((0, 1, 2)), (acc * acc).sum((0, 1, 2))])
+    summed = _summed(acc, rows)
+    stats = torch.stack([summed.sum((0, 1, 2)),
+                         (summed * summed).sum((0, 1, 2))])
     return acc.to(dt).contiguous(), stats
 
 
@@ -205,27 +264,31 @@ V_A, V_BI, V_B, V_C, V_SP, V_BP, V_RSTDP, V_NMRP = range(8)
 
 
 def bwd_layer_plain(g, z_i, z_prev, w, vecs, first_layer=False,
-                    mma_bf16=False):
+                    mma_bf16=False, valid_bounds=None):
     """Plain version of ``bwd_layer``: (da_prev, dW f32 HWIO, stats_prev).
     Rounding points and ``mma_bf16`` as in ``fwd_layer_train_plain``; with
     ``mma_bf16`` the operands dz, a_prev and w are rounded to bf16."""
     dt = g.dtype
+    rows = rows_of(g, valid_bounds)
     v = vecs.float()
     zi, zp = z_i.float(), z_prev.float()
     gt = g.float() * (zi * v[V_A] + v[V_BI] > 0)
-    dz = _round_operand(v[V_A] * gt + v[V_B] * zi + v[V_C], mma_bf16)
+    dz = _round_operand(_operand(v[V_A] * gt + v[V_B] * zi + v[V_C], rows),
+                        mma_bf16)
     wr = _round_operand(w.to(dt), mma_bf16)
     da = _conv_f32(dz, wr.flip(0, 1).transpose(2, 3))
     yp = zp * v[V_SP] + v[V_BP]
     a_prev = _round_operand(torch.relu(yp), mma_bf16)
+    if rows is not None:
+        a_prev = _zero_outside(a_prev, rows[2], rows[3])
     dw = conv2d_weight(
         a_prev.permute(0, 3, 1, 2), (C, C, 3, 3),
         dz.permute(0, 3, 1, 2)).permute(2, 3, 1, 0).contiguous()
     if first_layer:
         stats = torch.zeros(2, C, dtype=torch.float32, device=g.device)
     else:
-        gp = da * (yp > 0)
-        zhat = zp * v[V_RSTDP] + v[V_NMRP]
+        gp = _summed(da * (yp > 0), rows)
+        zhat = _summed(zp * v[V_RSTDP] + v[V_NMRP], rows)
         stats = torch.stack([gp.sum((0, 1, 2)), (gp * zhat).sum((0, 1, 2))])
     return da.to(dt).contiguous(), dw, stats
 
@@ -234,48 +297,51 @@ def bwd_layer_plain(g, z_i, z_prev, w, vecs, first_layer=False,
 def _lib_bwd():
     lib = load("fused_stack_bwd")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.f2f_bwd_layer.restype = ci
-    lib.f2f_bwd_layer.argtypes = ([vp, vp, vp, ci, vp, vp, ci]
-                                  + [vp] * 3 + [ci] * 4 + [vp])
+    lib.f2f_bwd_layer_window.restype = ci
+    lib.f2f_bwd_layer_window.argtypes = ([vp, vp, vp, ci, vp, vp, ci]
+                                         + [vp] * 3 + [ci] * 8 + [vp])
     _bind_error_string(lib)
     return lib
 
 
-def fwd_layer_train(z_prev, w, s, b):
+def fwd_layer_train(z_prev, w, s, b, valid_bounds=None):
     """One training mid layer: ``fwd_layer`` and the BN batch sums.
 
     Returns (z in z_prev's dtype, stats (2, 64) f32 = per-channel sum z and
-    sum z^2 over all B*H*W pixels, from the f32 accumulator). The sums are
-    reduced in a fixed order: the same inputs give the same bits."""
+    sum z^2 over all B*H*W pixels, over rows [slo, shi) with
+    ``valid_bounds``, from the f32 accumulator). The sums are reduced in a
+    fixed order: the same inputs give the same bits."""
     s, b = _checked("fwd_layer_train", z_prev, w, s, b)
+    rows = _full_rows(z_prev, rows_of(z_prev, valid_bounds))
     if z_prev.device.type == "cpu":
-        return fwd_layer_train_plain(z_prev, w, s, b)
+        return fwd_layer_train_plain(z_prev, w, s, b,
+                                     valid_bounds=valid_bounds)
     _on_current_cuda("fwd_layer_train", z_prev)
     lib = _lib()
     wk = kernel_weights(w)
-    rows = _partial_rows(z_prev.device.index)
+    n_partial = _partial_rows(z_prev.device.index)
     z = torch.empty_like(z_prev)
     stats = torch.empty(2, C, dtype=torch.float32, device=z_prev.device)
-    partial = torch.empty(rows, 2, C, dtype=torch.float32,
+    partial = torch.empty(n_partial, 2, C, dtype=torch.float32,
                           device=z_prev.device)
-    B, H, W, _ = z_prev.shape
-    rc = lib.f2f_fwd_layer_train(
-        z_prev.data_ptr(), int(z_prev.dtype == torch.float32), wk.data_ptr(),
-        s.data_ptr(), b.data_ptr(), z.data_ptr(), stats.data_ptr(),
-        partial.data_ptr(), rows, B, H, W,
-        torch.cuda.current_stream().cuda_stream)
+    args = (z_prev.data_ptr(), int(z_prev.dtype == torch.float32),
+            wk.data_ptr(), s.data_ptr(), b.data_ptr(), z.data_ptr(),
+            stats.data_ptr(), partial.data_ptr(), n_partial, *z_prev.shape[:3])
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = lib.f2f_fwd_layer_train_window(*args, *rows, stream)
     _raise_on(lib, "fwd_layer_train", rc)
     fwd_layer_train.launches += 1
     return z, stats
 
 
-def bwd_layer(g, z_i, z_prev, w, vecs, first_layer=False):
+def bwd_layer(g, z_i, z_prev, w, vecs, first_layer=False, valid_bounds=None):
     """One training mid layer's backward.
 
     g: cotangent of the layer's activation a_i, (B, H, W, 64) bf16 or f32;
     z_i, z_prev: stored conv outputs of this layer and the one before (the
     stack input when ``first_layer``), same shape and dtype; w: (3, 3, 64,
-    64) HWIO; vecs: (8, 64) f32, rows ``V_A`` .. ``V_NMRP``.
+    64) HWIO; vecs: (8, 64) f32, rows ``V_A`` .. ``V_NMRP``; valid_bounds:
+    a slab's row window (module docstring).
 
     Returns (da_prev in g's dtype, dW (3, 3, 64, 64) f32, stats_prev (2, 64)
     f32 = sum gp and sum gp * zhat_prev with gp = da_prev * [a_prev > 0],
@@ -293,25 +359,27 @@ def bwd_layer(g, z_i, z_prev, w, vecs, first_layer=False):
             or vecs.device != g.device):
         raise ValueError(f"{name}: vecs must be (8, {C}) f32 on {g.device}")
     vecs = vecs.contiguous()
+    rows = _full_rows(g, rows_of(g, valid_bounds))
     if g.device.type == "cpu":
-        return bwd_layer_plain(g, z_i, z_prev, w, vecs, first_layer)
+        return bwd_layer_plain(g, z_i, z_prev, w, vecs, first_layer,
+                               valid_bounds=valid_bounds)
     _on_current_cuda(name, g)
     lib = _lib_bwd()
     wk = kernel_weights(w)
     dev = g.device
-    rows = _partial_rows(dev.index)
+    n_partial = _partial_rows(dev.index)
     da = torch.empty_like(g)
     # stats_prev (2, 64) and dW (3, 3, 64, 64) side by side, as the kernel's
     # partial rows hold them
     out = torch.empty(2 * C + 9 * C * C, dtype=torch.float32, device=dev)
-    partial = torch.empty(rows, out.numel(), dtype=torch.float32, device=dev)
-    B, H, W, _ = g.shape
-    rc = lib.f2f_bwd_layer(
-        g.data_ptr(), z_i.data_ptr(), z_prev.data_ptr(),
-        int(g.dtype == torch.float32), wk.data_ptr(), vecs.data_ptr(),
-        int(bool(first_layer)), da.data_ptr(), out.data_ptr(),
-        partial.data_ptr(), rows, B, H, W,
-        torch.cuda.current_stream().cuda_stream)
+    partial = torch.empty(n_partial, out.numel(), dtype=torch.float32,
+                          device=dev)
+    args = (g.data_ptr(), z_i.data_ptr(), z_prev.data_ptr(),
+            int(g.dtype == torch.float32), wk.data_ptr(), vecs.data_ptr(),
+            int(bool(first_layer)), da.data_ptr(), out.data_ptr(),
+            partial.data_ptr(), n_partial, *g.shape[:3])
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = lib.f2f_bwd_layer_window(*args, *rows, stream)
     _raise_on(lib, name, rc)
     bwd_layer.launches += 1
     return da, out[2 * C:].view(3, 3, C, C), out[:2 * C].view(2, C)
@@ -348,10 +416,12 @@ def mid_forward(fwd, wk, gammas, betas, z_in, count):
 
     wk: ``kernel_weights`` of (L, 3, 3, 64, 64); z_in: (B, H, W, 64) in the
     chain's dtype, the stack input before its ReLU (or after: the first
-    prologue is the identity affine and a ReLU); count: B * H * W. Returns
-    (zs, the L raw conv outputs; ss, bs (L + 1, 64), the prologue affines,
-    row i + 1 layer i's BatchNorm; means, vars (L, 64))."""
-    s = torch.ones(C, dtype=torch.float32, device=z_in.device)
+    prologue is the identity affine and a ReLU), or whatever ``fwd`` takes
+    (``ops/fused_spatial.py`` hands it a frame's slabs); count: B * H * W.
+    Returns (zs, the L raw conv outputs; ss, bs (L + 1, 64), the prologue
+    affines, row i + 1 layer i's BatchNorm; means, vars (L, 64)), all but
+    zs on wk's device."""
+    s = torch.ones(C, dtype=torch.float32, device=wk.device)
     b = torch.zeros_like(s)
     cur = z_in
     zs, ss, bs, moments = [], [s], [b], []

@@ -39,7 +39,9 @@ from ..models.fused_apply import (
     can_fuse_batch,
     fused_eval_apply,
     fused_eval_apply_batch,
+    fused_eval_apply_spatial,
     fused_train_apply,
+    fused_train_apply_spatial,
 )
 from ..ops.warp import bilinear_warp_with_mask, occlusion_mask
 from ..utils.device import resolve_device
@@ -86,7 +88,8 @@ class torch_adam:
         return u, {"count": count, "m": m, "v": v}
 
 
-def make_denoise(model, residual_model=False):
+def make_denoise(model, residual_model=False, spatial_mesh=None,
+                 store_dtype=torch.bfloat16):
     """Build ``denoise(x, train=False, eval_impl=None) -> deno`` for one
     (H, W, C) frame, through the fused kernels where the model allows it
     (``fused_apply.can_fuse``: ``conv_impl="fused"``, 64 features), else
@@ -96,13 +99,22 @@ def make_denoise(model, residual_model=False):
     running statistics updated in place), builds the autograd graph and
     ignores ``eval_impl``. ``residual_model`` says whether the model returns
     the denoised image (harness convention) or the noise (submodule
-    convention, blind_denoising.py:218 subtracts)."""
+    convention, blind_denoising.py:218 subtracts). ``spatial_mesh``: a mesh
+    (``parallel.spatial.make_space_mesh``) over whose devices the fused
+    forwards split the frame by rows (``fused_apply.fused_*_spatial``); a
+    model that does not fuse runs unsplit. ``store_dtype``: the fused
+    chain's dtype (bf16 in production, f32 in the strict mode of the
+    tests)."""
     fused = can_fuse(model)
+    mesh = spatial_mesh if fused else None
 
     def denoise(x, train=False, eval_impl=None):
         if train:
-            if fused:
-                y = fused_train_apply(model, x[None])[0]
+            if mesh is not None:
+                y = fused_train_apply_spatial(model, x[None], mesh,
+                                              store_dtype)[0]
+            elif fused:
+                y = fused_train_apply(model, x[None], store_dtype)[0]
             else:
                 model.train()
                 try:
@@ -111,8 +123,12 @@ def make_denoise(model, residual_model=False):
                     model.eval()
             return y if residual_model else x - y
         with torch.no_grad():
-            if fused:
-                y = fused_eval_apply(model, x[None], eval_impl=eval_impl)[0]
+            if mesh is not None:
+                y = fused_eval_apply_spatial(model, x[None], mesh, store_dtype,
+                                             eval_impl)[0]
+            elif fused:
+                y = fused_eval_apply(model, x[None], store_dtype,
+                                     eval_impl)[0]
             else:
                 y = model(x[None])[0]
             return y if residual_model else x - y
@@ -121,7 +137,8 @@ def make_denoise(model, residual_model=False):
 
 
 def make_online_step(model, tx, iters=20, residual_model=False,
-                     flat_step=None):
+                     flat_step=None, spatial_mesh=None,
+                     store_dtype=torch.bfloat16):
     """Build the per-frame program
 
         step(opt_state, cur, prev, flow, eval_impl=None)
@@ -139,16 +156,32 @@ def make_online_step(model, tx, iters=20, residual_model=False,
     the flat step is not eligible, at once for a ``conv_impl`` other than
     ``"fused"``. (The JAX package switches with the environment variable
     ``F2F_FLATSTEP``; the port reads no implementation from the
-    environment.)"""
+    environment.)
+
+    ``spatial_mesh``: split the frame by rows over the mesh's devices
+    (``parallel.spatial.make_spatial_online_step``); the step then takes
+    the per-iteration body, as the JAX package's does, and ``flat_step=True``
+    raises. The warp, the mask and the loss run on the whole frame.
+    ``store_dtype``: the fused chain's dtype; the flat step runs the bf16
+    chain only, so f32 takes the per-iteration body (``flat_step=True``
+    raises)."""
     if flat_step and model.conv_impl != "fused":
         raise ValueError(
             "flat_step=True, but the flat step runs only conv_impl='fused'; "
             f"this model has conv_impl={model.conv_impl!r}")
-    denoise = make_denoise(model, residual_model=residual_model)
+    if flat_step and spatial_mesh is not None:
+        raise ValueError("flat_step=True, but the flat step does not split "
+                         "a frame: a spatial_mesh takes the per-iteration body")
+    if flat_step and store_dtype != torch.bfloat16:
+        raise ValueError(f"flat_step=True, but the flat step runs the bf16 "
+                         f"chain only, not {store_dtype}")
+    denoise = make_denoise(model, residual_model=residual_model,
+                           spatial_mesh=spatial_mesh, store_dtype=store_dtype)
     flat = JaxRavel(model)
 
     def use_flat_step(x_shape):
-        if flat_step is False:
+        if (flat_step is False or spatial_mesh is not None
+                or store_dtype != torch.bfloat16):
             return False
         ok = eligible(model, x_shape, residual_model)
         if flat_step and not ok:

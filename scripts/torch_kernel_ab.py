@@ -13,9 +13,10 @@ at 64->64, 1->64 and 64->1 (and 3->64, 64->3 on f32), kernel A on f32 at
 the same shapes, and ``last_loss_fwd``, ``last_loss_bwd`` and ``first_dw``
 on both chains (every case after a head start of the device, as the thin
 layers and the end kernels are shorter than their calls). ``CHANGED``
-names the cases whose kernels the change redesigned (``last_loss_bwd``);
-every other case is a control, printed with its change from the parent's
-mean. The flow's inner loop at 135x240 and 68x120 (smooth
+names the cases whose kernels the change touched (the mid-layer forms,
+which took a row window and run their launches without one through the
+same body); every other case is a control, printed with its change from
+the parent's mean. The flow's inner loop at 135x240 and 68x120 (smooth
 synthetic inputs, epsilon 0.01, up to 300 iterations): each tree's own
 body, which the change's ``cluster_plan`` picks by shape and the parent
 does not have (it has the cooperative body only). ``bwd_layer``'s C
@@ -41,7 +42,8 @@ SOURCES = ("fused_stack", "fused_stack_bwd", "conv3x3", "fused_ends",
 FLOW_SHAPES = ((135, 240), (68, 120))
 H, W, C = 540, 960, 64
 THIN = ((1, C), (C, 1), (3, C), (C, 3))
-CHANGED = {"last_loss_bwd", "last_loss_bwd f32"}
+CHANGED = {"fwd_layer", "fwd_layer_eval", "fwd_layer_train", "bwd_layer",
+           "fwd_layer f32", "fwd_layer_eval f32", "fwd_layer_train f32"}
 
 
 def build(tree, tag, name):
