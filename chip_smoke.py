@@ -114,7 +114,22 @@ Phases, any failure exits non-zero:
    fine-tuned and served at D = 2 on both eval routes (served frames
    bit-equal to the unsplit route's); host and device ms, and the peak
    device memory of the 1080p steps;
-12. a JSON line of per-kernel numbers (launches by path: each kernel is
+12. the config-driven entry point (``load_model``, ``models/__init__.py``):
+   the pretrained DnCNN-17 with ``conv_impl="fused"`` built on the card
+   without a device argument, its ``apply`` on the serving phase's four
+   frames at B=4 (exactly 15 ``fwd_layer`` launches and no other kernel,
+   the serving holds, bit-equal to ``denoise_batch(route="stacked")``),
+   scored by ``compute_psnrs``, ``compute_ssims`` and ``compute_strred``
+   with their host ms; FastDVDnet at its published widths on a seeded
+   7-frame 540p RGB clip with a sigma 25/255 noise map (one 96x160 window
+   on the card within 1e-4 of the same module on the CPU; the clip's
+   shape, finite values, host and device ms a frame, peak memory); a
+   training state (``save_train_state(extra=)`` -> ``load_train_state(
+   like=)``) read back bit for bit; the noise simulator's ``run_rgb`` on a
+   540p frame with known a, b and its ``fit`` (200 steps) recovering them
+   (``SIM_A_TOL``, ``SIM_B_TOL``) and agreeing with a CPU fit of the same
+   pair;
+13. a JSON line of per-kernel numbers (launches by path: each kernel is
    launched on every path it belongs to and on no other), then the card
    line, then the result line ``{"ok": true, "device": {...}}``.
 
@@ -244,6 +259,18 @@ SPATIAL_FIRST_LOSS_RTOL = 1e-4
 SPATIAL_PLAIN_GRAD_RTOL = 1e-4
 SPATIAL_EDGE_RMS_RATIO = 1.5
 SPATIAL_PHASE_S = 120
+# FastDVDnet on the card against the same module on the CPU, one window at
+# 96x160: both f32 (cuDNN with TF32 off), sums in another order
+FDV_CPU_RTOL = 1e-4
+# the noise simulator's fit (200 Adam steps from a=2, b=0) on one 540p RGB
+# frame drawn with sigma = softplus(SIM_A + SIM_B * x), x in [0, 255]: on
+# the CPU (seeds 0, 1) the fit stops 0.079-0.080 from a and 5.9e-4-6.4e-4
+# from b (200 steps do not converge); the bounds allow 1.5 times that. The
+# card's fit against a CPU fit of the same pair: the same 200 steps, the
+# loss's sums in another order
+SIM_A, SIM_B = 2.0, 0.01
+SIM_A_TOL, SIM_B_TOL = 0.12, 1e-3
+SIM_VS_CPU = (1e-2, 1e-4)
 # golden flows of the reference binary: the JAX package's own bounds
 # (tests/test_tvl1_golden.py)
 GOLDEN_MEAN_TOL, GOLDEN_MAX_TOL = 1e-5, 5e-4
@@ -1358,6 +1385,29 @@ def training_phase(torch, fs, psnr, variables, model):
     return launches, flat_launches, out
 
 
+def hold_served(psnr, out, plain, clean, noisy, what):
+    """Served frames against the same model's plain f32 forward: max
+    difference, PSNR against the plain forward's, and the denoising gain
+    over the noisy frames."""
+    out = out.cpu().numpy()
+    check(out.shape == noisy.shape, f"{what}: shape {out.shape}")
+    check(np.isfinite(out).all(), f"{what}: non-finite output")
+    B = len(out)
+    err = float(np.abs(out - plain).max())
+    p = [psnr(clean[k], out[k]) for k in range(B)]
+    p_plain = [psnr(clean[k], plain[k]) for k in range(B)]
+    p_noisy = [psnr(clean[k], noisy[k]) for k in range(B)]
+    dp = max(abs(a - c) for a, c in zip(p, p_plain))
+    gain = min(a - c for a, c in zip(p, p_noisy))
+    print(f"{what}: max|served-plain| {err:.3e}, psnr {np.mean(p):.4f} dB "
+          f"(max |d| vs plain {dp:.4f}), min gain {gain:.4f} dB", flush=True)
+    check(err <= SERVE_ATOL, f"{what}: max|served-plain| {err}")
+    check(dp <= SERVE_PSNR_TOL, f"{what}: psnr off plain by {dp} dB")
+    check(gain > MIN_GAIN_DB, f"{what}: denoising gain {gain} dB")
+    return {"max_abs_err": err, "psnr_db": float(np.mean(p)),
+            "psnr_vs_plain_db": dp, "min_gain_db": gain}
+
+
 def serving_phase(torch, fs, psnr):
     """The main path; returns (launch counts of the counted run, timings)."""
     from frame2frame_tpu_torch.models.dncnn import from_jax_variables
@@ -1391,19 +1441,7 @@ def serving_phase(torch, fs, psnr):
     kname = {"affine": "fwd_layer", "act-bf16": "fwd_layer_eval"}
 
     def hold(out, what):
-        out = out.cpu().numpy()
-        check(out.shape == noisy.shape, f"{what}: shape {out.shape}")
-        check(np.isfinite(out).all(), f"{what}: non-finite output")
-        err = float(np.abs(out - plain).max())
-        p = [psnr(clean[k], out[k]) for k in range(B)]
-        dp = max(abs(a - c) for a, c in zip(p, p_plain))
-        gain = min(a - c for a, c in zip(p, p_noisy))
-        print(f"serving {what}: max|served-plain| {err:.3e}, psnr "
-              f"{np.mean(p):.4f} dB (max |d| vs plain {dp:.4f}), min gain "
-              f"{gain:.4f} dB", flush=True)
-        check(err <= SERVE_ATOL, f"{what}: max|served-plain| {err}")
-        check(dp <= SERVE_PSNR_TOL, f"{what}: psnr off plain by {dp} dB")
-        check(gain > MIN_GAIN_DB, f"{what}: denoising gain {gain} dB")
+        hold_served(psnr, out, plain, clean, noisy, f"serving {what}")
 
     def counted(fn, impl, expect, what):
         before = dict(fs.launch_counts())
@@ -2440,17 +2478,17 @@ def conv_impl_phase(torch, fs, psnr, variables):
     return launches, out
 
 
-def _same_tree(a, b, path=""):
+def _same_tree(a, b, path="", what="final.msgpack"):
     if isinstance(b, dict):
         check(isinstance(a, dict) and a.keys() == b.keys(),
-              f"final.msgpack: keys at {path or 'the top'} differ")
+              f"{what}: keys at {path or 'the top'} differ")
         for k in b:
-            _same_tree(a[k], b[k], f"{path}/{k}")
+            _same_tree(a[k], b[k], f"{path}/{k}", what)
         return
     a, b = np.asarray(a), np.asarray(b)
     check(a.dtype == b.dtype and a.shape == b.shape
           and a.tobytes() == b.tobytes(),
-          f"final.msgpack: {path} differs from the engine's state")
+          f"{what}: {path} differs from the state written")
 
 
 def streaming_phase(torch, fs, psnr, variables):
@@ -2939,6 +2977,217 @@ def spatial_phase(torch, fs, psnr, variables):
     return launches, out
 
 
+def rgb_clip(n, seed):
+    """``n`` 540p RGB frames in [0.1, 0.9], frame t the grey frames t, t+1
+    and t+2 of ``synthetic_frames`` as its channels, and their noisy
+    versions (sigma 25/255): (1, n, H, W, 3) each."""
+    grey = synthetic_frames(n + 2, seed)[0][..., 0]
+    clean = np.stack([np.stack(grey[t:t + 3], -1) for t in range(n)])[None]
+    rng = np.random.default_rng(seed + 1)
+    noisy = clean + SIGMA * rng.standard_normal(clean.shape)
+    return clean.astype(np.float32), noisy.astype(np.float32)
+
+
+def fastdvdnet_flops(torch, net, h, w):
+    """Operations of one ``FastDVDnet`` window at h x w: two a multiply-add
+    of every convolution, each DenBlock's blocks at their level's size,
+    ``temp1`` three times and ``temp2`` once."""
+    level = {"inc": 1, "downc0": 2, "downc1": 4, "upc2": 4, "upc1": 2,
+             "outc": 1}
+
+    def den(block):
+        return sum(2 * m.weight[0].numel() * m.out_channels
+                   * -(-h // level[name]) * -(-w // level[name])
+                   for name, sub in block.named_children()
+                   for m in sub.modules()
+                   if isinstance(m, torch.nn.Conv2d))
+    return 3 * den(net.temp1) + den(net.temp2)
+
+
+def registry_phase(torch, fs, psnr):
+    """The config-driven entry point (``load_model``): the pretrained
+    DnCNN-17 served at B=4 through the fused kernels and scored by the
+    harness's metrics; FastDVDnet at its published widths on a 540p RGB
+    clip; a training state written and read back on this machine; the noise
+    simulator's sample and fit. Returns (launch counts of the served batch,
+    timings and checks)."""
+    import tempfile
+
+    import frame2frame_tpu_torch as port
+    from frame2frame_tpu_torch.models.dncnn import (
+        from_jax_variables, opt_state_to_jax)
+    from frame2frame_tpu_torch.models.noise_sim import load_sim
+    from frame2frame_tpu_torch.models.serialization import (
+        load_train_state, save_train_state)
+    from frame2frame_tpu_torch.train.online import OnlineDenoiser
+    from frame2frame_tpu_torch.utils import (
+        ExpTimer, GpuMemer, MemIt, TimeIt, compute_psnrs, compute_ssims,
+        compute_strred)
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    out = {}
+    B = 4
+    loaded = port.load_model({
+        "net_name": "dncnn", "channels": 1, "num_of_layers": 17,
+        "residual": True, "conv_impl": "fused", "pretrained_load": True,
+        "pretrained_path": str(CKPT)})
+    check(next(loaded.model.parameters()).device.type == "cuda",
+          "load_model without a device did not build on the card")
+    clean, noisy = synthetic_frames(B)
+    x = torch.from_numpy(noisy).to(dev)
+    with torch.no_grad():
+        f32_model = from_jax_variables(loaded.variables, residual=True,
+                                       conv_impl="xla").to(dev).eval()
+        plain = f32_model(x).cpu().numpy()
+        del f32_model
+    fs.reset_launch_counts()
+    done = count_run(torch, fs, {"fwd_layer": NMID}, "registry apply")
+    served = loaded.apply(noisy)
+    torch.cuda.synchronize()
+    done()
+    launches = fs.launch_counts()
+    out["dncnn_b4"] = hold_served(psnr, served, plain, clean, noisy,
+                                  "registry load_model(dncnn).apply")
+    eng = OnlineDenoiser(from_jax_variables(loaded.variables, residual=True),
+                         loaded.variables, residual_model=True, device="cuda")
+    stacked = eng.denoise_batch(x, route="stacked")
+    check(torch.equal(served, stacked),
+          "registry apply: not bit-equal to denoise_batch(route='stacked')")
+    out["dncnn_b4"]["time"] = dict(
+        profile_call(torch, lambda: loaded.apply(x)), frames=B)
+    print("registry apply B=4: " + json.dumps(out["dncnn_b4"]), flush=True)
+
+    deno = served.cpu().numpy()
+    scores = {}
+    for name, fn, args in (
+            ("compute_psnrs", compute_psnrs, (deno, clean)),
+            ("compute_ssims", compute_ssims, (deno, clean)),
+            ("compute_strred", compute_strred, (clean, deno))):
+        t0 = time.perf_counter()
+        val = fn(*args, div=1.0)
+        ms = (time.perf_counter() - t0) * 1e3
+        noisy_args = (noisy, clean) if name != "compute_strred" else (
+            clean, noisy)
+        scores[name] = {"deno": [float(v) for v in val], "host_ms": ms,
+                        "noisy": [float(v) for v in fn(*noisy_args, div=1.0)]}
+        check(np.isfinite(val).all(), f"{name}: non-finite values")
+    p = scores["compute_psnrs"]
+    check(np.allclose(p["deno"], [psnr(clean[k], deno[k]) for k in range(B)],
+                      rtol=0, atol=1e-9),
+          "compute_psnrs disagrees with psnr")
+    check(min(np.subtract(scores["compute_ssims"]["deno"],
+                          scores["compute_ssims"]["noisy"])) > 0,
+          "compute_ssims: the denoised frames score no better")
+    check(min(scores["compute_strred"]["deno"]) >= 0,
+          "compute_strred: a negative value")
+    out["metrics"] = scores
+    print("registry metrics: " + json.dumps(
+        {k: {"deno_mean": float(np.mean(v["deno"])),
+             "noisy_mean": float(np.mean(v["noisy"])),
+             "host_ms": v["host_ms"]} for k, v in scores.items()}),
+        flush=True)
+
+    # FastDVDnet, published widths, seeded weights
+    T = 7
+    fdv = port.load_model({"net_name": "fastdvdnet", "channels": 3,
+                           "seed": 0})
+    clean_v, noisy_v = rgb_clip(T, seed=2)
+    nm = np.full((1, H, W, 1), SIGMA, np.float32)
+    win = noisy_v[:, :5, :96, :160]
+    with torch.no_grad():
+        on_card = fdv.model.net(torch.from_numpy(win).to(dev),
+                                torch.from_numpy(nm[:, :96, :160]).to(dev))
+        on_cpu = copy.deepcopy(fdv.model.net).cpu()(
+            torch.from_numpy(win), torch.from_numpy(nm[:, :96, :160]))
+    scale = float(on_cpu.abs().max())
+    err = float((on_card.cpu() - on_cpu).abs().max())
+    print(f"registry fastdvdnet 96x160 window: max|card-cpu| {err:.3e} of "
+          f"{scale:.3e}", flush=True)
+    check(err <= FDV_CPU_RTOL * scale,
+          f"fastdvdnet window: card off the CPU by {err} (scale {scale})")
+    timer, memer = ExpTimer(), GpuMemer()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with MemIt(memer, "fastdvdnet"), TimeIt(timer, "fastdvdnet"):
+        vid = fdv.apply(noisy_v, noise_map=nm)
+    check(tuple(vid.shape) == (1, T, H, W, 3),
+          f"fastdvdnet: output shape {tuple(vid.shape)}")
+    check(bool(torch.isfinite(vid).all()), "fastdvdnet: non-finite output")
+    prof = profile_call(torch, lambda: fdv.apply(noisy_v, noise_map=nm),
+                        iters=3)
+    peak_gb, _ = dict(memer.items())["fastdvdnet"]
+    flops = fastdvdnet_flops(torch, fdv.model.net, H, W)
+    out["fastdvdnet_540p"] = {
+        "frames": T, "gflop_a_frame": flops / 1e9,
+        "f32_bound_ms_a_frame": flops / F32_FLOP_PER_S * 1e3,
+        "first_call_ms_a_frame":
+            timer["timer_fastdvdnet"] * 1e3 / T,
+        "ms_a_frame": prof["ms"] / T, "device_ms_a_frame":
+            prof["device_ms"] / T, "busy_share": prof["busy_share"],
+        "peak_gb": peak_gb, "window_max_abs_err": err,
+        "top_kernels": prof["top_kernels"]}
+    print("registry fastdvdnet 540p: " + json.dumps(out["fastdvdnet_540p"]),
+          flush=True)
+    del fdv, vid
+    torch.cuda.empty_cache()
+
+    # a training state on this machine (no flax, no msgpack package)
+    params = loaded.variables["params"]
+    stats = loaded.variables["batch_stats"]
+    opt_state = opt_state_to_jax(eng.opt_state)
+    extra = {"frame": np.asarray(3, np.int32),
+             "psnr": np.asarray(p["deno"][0], np.float32),
+             "shape": np.asarray([H, W])}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "state.msgpack"
+        save_train_state(path, params, opt_state, batch_stats=stats,
+                         extra=extra)
+        like = {"params": params, "opt_state": opt_state,
+                "batch_stats": stats, "extra": extra}
+        _same_tree(load_train_state(path, like), like, what="train state")
+        out["train_state_bytes"] = path.stat().st_size
+    print(f"registry train state: {out['train_state_bytes']} bytes read "
+          "back bit-equal", flush=True)
+
+    # the noise simulator: a known model's sample, then a fit from defaults
+    a, b = SIM_A, SIM_B
+    frame = clean_v[0, 0] * 255.0
+    sim = load_sim({"sim_channels": 3, "sim_sigma_a": a, "sim_sigma_b": b})
+    noisy_f = sim.run_rgb(frame,
+                          generator=torch.Generator(dev).manual_seed(1))
+    resid = (noisy_f - torch.from_numpy(frame).to(dev)) / sim.sigma(frame)
+    fit = load_sim()
+    t0 = time.perf_counter()
+    loss = fit.fit(frame, noisy_f)
+    torch.cuda.synchronize()
+    fit_ms = (time.perf_counter() - t0) * 1e3
+    cpu_fit = load_sim(device="cpu")
+    cpu_fit.fit(frame, noisy_f.cpu())
+    got = {k: v.cpu().numpy() for k, v in fit.params.items()}
+    ref = {k: v.numpy() for k, v in cpu_fit.params.items()}
+    out["noise_sim"] = {
+        "residual_std": float(resid.std()), "fit_ms": fit_ms, "loss": loss,
+        "a": got["a"].tolist(), "b": got["b"].tolist(),
+        "a_err": float(np.abs(got["a"] - a).max()),
+        "b_err": float(np.abs(got["b"] - b).max()),
+        "a_vs_cpu": float(np.abs(got["a"] - ref["a"]).max()),
+        "b_vs_cpu": float(np.abs(got["b"] - ref["b"]).max())}
+    print("registry noise_sim: " + json.dumps(out["noise_sim"]), flush=True)
+    check(abs(out["noise_sim"]["residual_std"] - 1) < 0.01,
+          "run_rgb: the residual is not unit normal over sigma")
+    check(out["noise_sim"]["a_err"] <= SIM_A_TOL
+          and out["noise_sim"]["b_err"] <= SIM_B_TOL,
+          "noise_sim fit: a or b not recovered")
+    check(out["noise_sim"]["a_vs_cpu"] <= SIM_VS_CPU[0]
+          and out["noise_sim"]["b_vs_cpu"] <= SIM_VS_CPU[1],
+          "noise_sim fit: the card's fit is off the CPU's")
+
+    elapsed = time.perf_counter() - t_phase
+    out["phase_s"] = elapsed
+    print(f"phase time: registry {elapsed:.1f} s", flush=True)
+    return launches, out
+
+
 def main():
     if not (REPO / "frame2frame_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke: the port's package frame2frame_tpu_torch is not "
@@ -3015,6 +3264,8 @@ def main():
               flush=True)
         torch.cuda.empty_cache()
         spatial_launches, spatial = spatial_phase(torch, fs, psnr, variables)
+        torch.cuda.empty_cache()
+        registry_launches, registry = registry_phase(torch, fs, psnr)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -3025,12 +3276,12 @@ def main():
     # engine takes by itself; flow: the flat route fed by AsyncFlowSolver;
     # conv_<impl>: the engine on a conv_impl route; stream: the CLI's loop
     # on the flat route with AsyncFlowSolver; stream_pallas: the loop on
-    # the "pallas" route; spatial: the H-split fine-tune and serving), and on
-    # no other path
+    # the "pallas" route; spatial: the H-split fine-tune and serving;
+    # registry: load_model's apply of a "fused" DnCNN), and on no other path
     ends = ("flat", "flow", "stream")
     fused = ("training",) + ends + ("spatial",)
     conv_paths = tuple(f"conv_{impl}" for impl in CONV_ROUTES)
-    paths = {"fwd_layer": ("serving",) + fused,
+    paths = {"fwd_layer": ("serving",) + fused + ("registry",),
              "fwd_layer_eval": ("serving", "spatial"),
              "fwd_layer_train": fused, "bwd_layer": fused,
              "first_conv": ends, "last_loss_fwd": ends,
@@ -3042,7 +3293,7 @@ def main():
                "flat": flat_launches, "flow": flow_launches,
                "stream": stream_launches["stream"],
                "stream_pallas": stream_launches["stream_pallas"],
-               "spatial": spatial_launches,
+               "spatial": spatial_launches, "registry": registry_launches,
                **{f"conv_{impl}": conv_launches[impl]
                   for impl in CONV_ROUTES}}
     for name, on in paths.items():
@@ -3073,7 +3324,7 @@ def main():
     print(json.dumps({"kernels": kernels, "serving": timings,
                       "training": training, "flow": flow,
                       "conv_impl": conv_impl, "streaming": stream,
-                      "spatial": spatial}))
+                      "spatial": spatial, "registry": registry}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

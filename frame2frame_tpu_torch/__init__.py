@@ -1,8 +1,13 @@
 """frame2frame_tpu_torch: the PyTorch + CUDA port of frame2frame_tpu for
 NVIDIA Hopper.
 
-It imports torch, numpy and the standard library only; never JAX, flax or
-``frame2frame_tpu``. Ported so far: the streaming loop
+It imports torch, numpy, scipy (the quality metrics) and the standard
+library only; never JAX, flax or ``frame2frame_tpu``. Ported so far: the
+config-driven model entry point (``load_model(cfg)`` -> ``apply(vid)``, with
+DnCNN and FastDVDnet; a ``"fused"`` DnCNN serves its batches on the fused
+kernels on a card), the noise simulator, the host helpers the harness stands
+on (configs and their grids, metrics, timers, memory meters, video I/O,
+random crops), the streaming loop
 (``run_blind_denoising`` and the ``blind_denoising`` CLI), the DnCNN serving
 path, the online fine-tune on the JAX package's routes (the whole-iteration
 flat step, which the engine takes where it is eligible, the per-iteration
@@ -10,10 +15,16 @@ body on ``fused_train_apply``, and the module's own forward for every
 ``conv_impl``), and TV-L1 optical flow with the solver that feeds the
 fine-tune.
 
-- models:  DnCNN module with its ``conv_impl`` routes and ``init_dncnn`` +
-           weight and optimizer-state converters, msgpack checkpoint reader
-           and writer, the fused eval and training forwards
-           (``fused_apply``)
+- models:  the registry (``load_model``, ``extract_model_config``,
+           ``load_checkpoint``), DnCNN module with its ``conv_impl`` routes
+           and ``init_dncnn`` + weight and optimizer-state converters,
+           FastDVDnet (``fastdvdnet``: ``FastDVDnet``, ``FastDVDnetVideo``,
+           ``init_fastdvdnet``, the official state-dict layout and the JAX
+           converters), the noise simulator (``noise_sim``:
+           ``HeteroscedasticGaussianSim``, ``load_sim``), msgpack checkpoint
+           reader and writer (``load_variables(like=)``,
+           ``save_train_state(extra=)``, ``load_train_state``), the fused
+           eval and training forwards (``fused_apply``)
 - ops:     hand-written CUDA kernels with their plain PyTorch versions: the
            mid layers and the differentiable mid stack (``fused_stack``,
            which also keeps the launch registry of all eleven kernels), the
@@ -33,12 +44,34 @@ fine-tune.
            ``run_blind_denoising``, the flat step (``flat_step``:
            ``flat_net_loss``, ``run_flat_scan``)
 - io:      ``.flo`` files, image readers and writers (numpy; PGM without
-           PIL, other formats with PIL on demand)
+           PIL, other formats with PIL on demand), videos as directories of
+           frames (``video``)
+- data:    ``run_rand_crop``
 - cli:     ``python -m frame2frame_tpu_torch.cli.tvl1flow``,
            ``python -m frame2frame_tpu_torch.cli.blind_denoising``
-- config:  ``Config``
-- utils:   device resolution, PSNR, CUDA-event timing, ``--profile``'s trace
-           and memory snapshot (``profiling``)
+- config:  ``Config``, ``optional``, ``extract_pairs``, ``dcat``,
+           ``cfg_grid``, ``mesh_grids``, ``cfg_uuid``, ``ExtractConfig``
+- utils:   device resolution, PSNR / SSIM / ST-RRED (``metrics``), stage
+           timers and CUDA-event timing (``timer``), device memory meters
+           (``mem``), seeds, slices and pickles (``misc``), ``--profile``'s
+           trace, named regions and memory snapshot (``profiling``)
 """
 
-__version__ = "0.5.0"
+__version__ = "0.6.0"
+
+from . import config
+from .config import Config, cfg_grid, dcat, extract_pairs, optional
+
+
+def load_model(cfg, device=None):
+    """Config-driven model construction (reference
+    lib/frame2frame/__init__.py:31-39) on ``device`` (None: the CUDA card)."""
+    from . import models
+
+    return models.load_model(cfg, device=device)
+
+
+def extract_model_config(cfg):
+    from . import models
+
+    return models.extract_model_config(cfg)

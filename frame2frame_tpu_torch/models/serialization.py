@@ -9,6 +9,11 @@ the JAX package reads what it writes. Arrays are flax's ext type 1,
 the same encoding; ``packb`` encodes every value in the smallest form, as the
 ``msgpack`` package does, and a dict in sorted key order, as JAX's tree
 functions leave it, so it gives the JAX package's bytes for the same tree.
+Before writing, a tree becomes flax's state dict (``to_state_dict``): lists
+and tuples become dicts keyed ``"0"``, ``"1"``, ..., keys become strings,
+and torch tensors and numpy scalars numpy arrays. ``load_variables(path,
+like=)`` restores into ``like``'s structure as ``flax.serialization.
+from_bytes`` does, and is stricter: a key missing from either side raises.
 """
 
 from __future__ import annotations
@@ -104,13 +109,42 @@ def unpackb(data: bytes):
     return out
 
 
-def load_variables(path):
-    """A flax msgpack checkpoint -> its tree of dicts with numpy leaves."""
+def load_variables(path, like=None):
+    """A flax msgpack checkpoint -> its tree of dicts with numpy leaves, or,
+    given ``like``, the file restored into ``like``'s structure (dicts,
+    lists, tuples; the leaves are the file's). Raises ``ValueError`` where
+    the file's keys and ``like``'s differ."""
     tree = unpackb(Path(path).read_bytes())
     if isinstance(tree, dict) and _has_chunked(tree):
         raise ValueError("chunked array leaves (arrays over 1 GiB) are not "
                          "supported")
-    return tree
+    return tree if like is None else _restore(like, tree, "")
+
+
+def _restore(like, state, path):
+    """flax's ``from_state_dict`` for dicts, lists and tuples, with the keys
+    held equal both ways."""
+    if isinstance(like, (dict, list, tuple)):
+        if not isinstance(state, dict):
+            raise ValueError(f"{path or '/'}: the file holds a "
+                             f"{type(state).__name__} where the target holds "
+                             f"a {type(like).__name__}")
+        keys = ({str(k): k for k in like} if isinstance(like, dict)
+                else {str(i): i for i in range(len(like))})
+        missing = sorted(set(keys) - set(state))
+        extra = sorted(set(state) - set(keys))
+        if missing or extra:
+            raise ValueError(f"{path or '/'}: keys missing from the file "
+                             f"{missing}, keys the target lacks {extra}")
+        out = {k: _restore(like[k], state[s], f"{path}/{s}")
+               for s, k in keys.items()}
+        if isinstance(like, dict):
+            return out
+        return type(like)(out[i] for i in range(len(like)))
+    if isinstance(state, dict):
+        raise ValueError(f"{path or '/'}: the file holds a dict where the "
+                         f"target holds a leaf")
+    return state
 
 
 def _has_chunked(d):
@@ -219,22 +253,48 @@ def packb(obj) -> bytes:
     return b"".join(out)
 
 
+def _state_dict(tree):
+    """flax's ``to_state_dict`` of a tree after JAX's ``device_get``: dicts
+    with string keys, lists and tuples as dicts keyed by their indices,
+    torch tensors and numpy scalars as numpy arrays."""
+    if isinstance(tree, dict):
+        out = {str(k): _state_dict(v) for k, v in tree.items()}
+        if len(out) != len(tree):
+            raise ValueError("dict keys without a unique string form")
+        return out
+    if isinstance(tree, (list, tuple)):
+        return {str(i): _state_dict(v) for i, v in enumerate(tree)}
+    if hasattr(tree, "detach"):
+        return tree.detach().cpu().numpy()
+    if isinstance(tree, np.generic):
+        return np.asarray(tree)
+    return tree
+
+
 def save_variables(path, variables):
-    """Write a tree of dicts with numpy leaves to a flax msgpack file;
-    returns the path as a string."""
+    """Write a tree (dicts, lists, tuples; numpy or torch leaves, numbers,
+    strings) to a flax msgpack file, as the JAX package's ``save_variables``
+    writes it; returns the path as a string."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    path.write_bytes(packb(variables))
+    path.write_bytes(packb(_state_dict(variables)))
     return str(path)
 
 
-def save_train_state(path, params, opt_state, batch_stats=None):
+def save_train_state(path, params, opt_state, batch_stats=None, extra=None):
     """A training state as the JAX package's ``save_train_state`` writes it,
     the counterpart of ``torch.save([model, optimizer])`` at
-    blind_denoising.py:258: ``{"params", "opt_state", "batch_stats"}``, with
-    ``opt_state`` in the JAX package's form (``models.dncnn.
-    opt_state_to_jax``)."""
+    blind_denoising.py:258: ``{"params", "opt_state", "batch_stats",
+    "extra"}`` (the last two where given), with ``opt_state`` in the JAX
+    package's form (``models.dncnn.opt_state_to_jax``)."""
     state = {"params": params, "opt_state": opt_state}
     if batch_stats is not None:
         state["batch_stats"] = batch_stats
+    if extra is not None:
+        state["extra"] = extra
     return save_variables(path, state)
+
+
+def load_train_state(path, like):
+    """A training state restored into ``like``'s structure."""
+    return load_variables(path, like=like)

@@ -2,7 +2,8 @@
 ``conv_dw``, ``flow/tvl1_inner``) share: the plain convolution and operand
 rounding of the plain versions, the checks around a launch, and the port's
 only calls of the library's convolutions (``conv2d`` with its backward,
-``conv2d_input``, ``conv2d_weight``).
+``conv2d_input``, ``conv2d_weight``; the models' too, FastDVDnet's strided
+and grouped ones included).
 
 PyTorch lets cuDNN compute an f32 convolution in TF32 (a 10-bit mantissa)
 unless the caller turned ``torch.backends.cudnn.allow_tf32`` off; the JAX
@@ -37,40 +38,43 @@ class _Conv2d(torch.autograd.Function):
     ended, under the caller's flags."""
 
     @staticmethod
-    def forward(ctx, x, w):
+    def forward(ctx, x, w, stride, groups):
         ctx.save_for_backward(x, w)
+        ctx.conf = stride, groups
         with _cudnn_f32():
-            return F.conv2d(x, w, padding=1)
+            return F.conv2d(x, w, padding=1, stride=stride, groups=groups)
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = conv2d_input(x.shape, w, g)
+            dx = conv2d_input(x.shape, w, g, *ctx.conf)
         if ctx.needs_input_grad[1]:
-            dw = conv2d_weight(x, w.shape, g)
-        return dx, dw
+            dw = conv2d_weight(x, w.shape, g, *ctx.conf)
+        return dx, dw, None, None
 
 
-def conv2d(x, w):
-    """3x3 SAME convolution of NCHW ``x`` with OIHW ``w``, in the operands'
-    dtype (f32 operands in f32), differentiable: its dX and dW run in f32
-    too."""
-    return _Conv2d.apply(x, w)
+def conv2d(x, w, stride=1, groups=1):
+    """3x3 convolution of NCHW ``x`` with OIHW ``w``, padded by one pixel on
+    every side (SAME at stride 1), in the operands' dtype (f32 operands in
+    f32), differentiable: its dX and dW run in f32 too."""
+    return _Conv2d.apply(x, w, stride, groups)
 
 
-def conv2d_input(shape, w, g):
+def conv2d_input(shape, w, g, stride=1, groups=1):
     """dX of ``conv2d`` for an input of ``shape``, from the cotangent ``g``."""
     with _cudnn_f32():
-        return torch.nn.grad.conv2d_input(shape, w, g, padding=1)
+        return torch.nn.grad.conv2d_input(shape, w, g, padding=1,
+                                          stride=stride, groups=groups)
 
 
-def conv2d_weight(x, shape, g):
+def conv2d_weight(x, shape, g, stride=1, groups=1):
     """dW of ``conv2d`` for OIHW weights of ``shape``, from the cotangent
     ``g``."""
     with _cudnn_f32():
-        return torch.nn.grad.conv2d_weight(x, shape, g, padding=1)
+        return torch.nn.grad.conv2d_weight(x, shape, g, padding=1,
+                                           stride=stride, groups=groups)
 
 
 def _conv_f32(a, w):

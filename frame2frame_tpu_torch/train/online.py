@@ -25,7 +25,6 @@ its own, or from the batched solver in line (``run_blind_denoising``).
 from __future__ import annotations
 
 import copy
-import os
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -44,6 +43,7 @@ from ..models.fused_apply import (
     fused_train_apply_spatial,
 )
 from ..ops.warp import bilinear_warp_with_mask, occlusion_mask
+from ..utils.device import memory_budget as _memory_budget
 from ..utils.device import resolve_device
 from .flat_step import eligible, run_flat_scan
 
@@ -319,14 +319,6 @@ class AsyncFlowSolver:
         free the graph and its buffers."""
         self._pool.shutdown(wait=True, cancel_futures=True)
         self._graph = self._frames = self._flow = None
-
-
-def _memory_budget(device):
-    """Free memory of ``device`` in bytes: the card's free memory, or the
-    host's physical memory for the CPU."""
-    if device.type == "cuda":
-        return torch.cuda.mem_get_info(device)[0]
-    return os.sysconf("SC_PHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
 
 
 class OnlineDenoiser:

@@ -1,6 +1,8 @@
-"""Device resolution for the port's entry points."""
+"""Device resolution and the memory budget of the port's entry points."""
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -14,3 +16,11 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("no CUDA device: pass device='cpu' to run the "
                            "plain PyTorch versions on the CPU")
     return torch.device("cuda")
+
+
+def memory_budget(device):
+    """Free memory of ``device`` in bytes: the card's free memory, or the
+    host's physical memory for the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.mem_get_info(device)[0]
+    return os.sysconf("SC_PHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")

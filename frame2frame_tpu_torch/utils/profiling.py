@@ -1,11 +1,13 @@
-"""Device tracing and memory snapshots for the CLI's ``--profile``.
+"""Device tracing, named regions and memory snapshots for the CLI's
+``--profile``.
 
-Counterpart of ``frame2frame_tpu/utils/profiling.py``'s ``trace_if`` and
-``write_memory_profile``. The formats are PyTorch's, not JAX's: the trace is
-a Chrome trace of ``torch.profiler`` (CPU ops and, on a CUDA card, device
-kernels; it opens in Perfetto or ``chrome://tracing``), not an XLA profile,
-and the memory profile is a pickled ``torch.cuda.memory`` snapshot (it
-opens in PyTorch's memory viz), not a pprof file.
+Counterpart of ``frame2frame_tpu/utils/profiling.py``'s ``trace_if``,
+``annotate``, ``write_memory_profile`` and ``peak_device_memory_mb``. The
+formats are PyTorch's, not JAX's: the trace is a Chrome trace of
+``torch.profiler`` (CPU ops and, on a CUDA card, device kernels; it opens
+in Perfetto or ``chrome://tracing``), not an XLA profile, and the memory
+profile is a pickled ``torch.cuda.memory`` snapshot (it opens in PyTorch's
+memory viz), not a pprof file.
 """
 
 from __future__ import annotations
@@ -35,6 +37,12 @@ def trace_if(trace_dir):
     prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
 
 
+def annotate(name):
+    """Named region inside an active trace (``torch.profiler.
+    record_function``; the JAX package's ``TraceAnnotation``)."""
+    return torch.profiler.record_function(name)
+
+
 def write_memory_profile(path):
     """Write a snapshot of the CUDA caching allocator's memory (segments and
     blocks) to ``path``; raises where there is no CUDA card."""
@@ -43,3 +51,17 @@ def write_memory_profile(path):
                            "a card")
     torch.cuda.memory._dump_snapshot(path)
     return path
+
+
+def peak_device_memory_mb():
+    """Live and peak allocated memory in MB of each CUDA card, keyed by the
+    device's name (``"cuda:0"``); ``{}`` where there is no card."""
+    out = {}
+    if not torch.cuda.is_available():
+        return out
+    for i in range(torch.cuda.device_count()):
+        out[f"cuda:{i}"] = {
+            "bytes_in_use_mb": torch.cuda.memory_allocated(i) / 2**20,
+            "peak_bytes_in_use_mb": torch.cuda.max_memory_allocated(i) / 2**20,
+        }
+    return out
