@@ -129,7 +129,28 @@ Phases, any failure exits non-zero:
    540p frame with known a, b and its ``fit`` (200 steps) recovering them
    (``SIM_A_TOL``, ``SIM_B_TOL``) and agreeing with a CPU fit of the same
    pair;
-13. a JSON line of per-kernel numbers (launches by path: each kernel is
+13. the adaptation path (``get_loss_fxn(cfg, t)`` -> ``train/adapt.py``
+   wrapper -> loss -> Adam, ``adapt_phase``): the pretrained DnCNN-17
+   through ``load_model`` on a 7-frame 540p clip of the moving texture
+   (seed 21) with two held-out frames, for ``f2f``, ``stnls`` and ``sup`` at
+   the registry's defaults (128x128 crops, ws 9, ps 7, k 5, stride0 4, wt 1,
+   TV-L1 flows), Adam at 1e-4 on a cosine schedule; one window on the f32
+   "xla" route on the card against the CPU (the loss within 1e-4; in
+   float64 every parameter's gradient within 1e-9 and the update within
+   1e-4; the f32 update equal to Adam's first step from the card's
+   gradient) and "fused" against "xla" (the loss 0.5 %, ``sup``'s
+   MSE by the denoised crops' rms; gradients by cosine and norm) and
+   against its own backward on the plain dW; the search of a 128x128 window
+   against the CPU (distances 1e-4, 99 % of inds equal) with its time and
+   the refine's; kernel B at each of the 17 convolutions of a "fused"
+   window and ``tvl1_inner_loop`` at each launch of its flow (the 128x128
+   pyramid's levels, every pair of the window in one batch) against their
+   plain versions on the inputs the path gave them; then on "fused" the
+   windows, host ms, stream ms (CUDA events) and profiled device ms a
+   window, peak memory, exactly 17 kernel B and one flow's
+   ``tvl1_inner_loop`` launches a window (none for ``sup``), first and last
+   loss, PSNR of the held-out frames before and after;
+14. a JSON line of per-kernel numbers (launches by path: each kernel is
    launched on every path it belongs to and on no other), then the card
    line, then the result line ``{"ok": true, "device": {...}}``.
 
@@ -294,6 +315,63 @@ FLOW_LEVELS_540P = ((135, 240), (68, 120), (34, 60), (17, 30), (9, 15))
 # f32 operations a pixel and iteration of the inner loop (thresholding 13,
 # primal and error 15, dual 26)
 FLOW_OPS_PER_PIXEL = 54
+# the adaptation path (get_loss_fxn -> wrapper -> loss -> Adam): the
+# registry's defaults for the losses, a 7-frame 540p clip and two held-out
+# frames of the same scene, Adam at eval/test.py's adaptation learning rate
+# on its cosine schedule
+ADAPT_LOSSES = ("f2f", "stnls", "sup")
+ADAPT_CFG = dict(adapt_isize="128_128", adapt_nepochs=1, nbatch_sample=1,
+                 flow=True, flow_method="tvl1", ws=9, ps=7, k=5, stride0=4,
+                 wt=1)
+ADAPT_T, ADAPT_HELD, ADAPT_SEED = 7, 2, 21
+ADAPT_LR = 1e-4
+# one window on the f32 module route ("xla", TF32 off) on the card against
+# the same window on the CPU: the loss, f32 sums in another order
+ADAPT_CPU_RTOL = 1e-4
+# the same window in float64 on the card and on the CPU, each parameter's
+# gradient relative to its own largest: float64 sums in another order. Near
+# the loss's minimum a gradient is a small sum of large terms, so the f32
+# gradients of this window lie 1.1e-3 apart (measured on an H100) from an
+# f32 rounding of 6e-8; float64's 1.1e-16 takes that to ~2e-12. Its update,
+# by leaf against the update's largest, within ADAPT_CPU_RTOL: Adam's first
+# step lr * g / (|g| + eps) multiplies a gradient's difference by up to
+# max |g| / (4 eps), ~1e6 here. (The f32 updates are not held to each
+# other: where an f32 gradient element is at its rounding noise, its sign,
+# and so a whole step of 1e-4, differs between the devices: 1.1e-4 of the
+# largest weight on an H100.)
+ADAPT_F64_RTOL = 1e-9
+# that window's update on the card against Adam's first step from the card's
+# own gradient, lr * g / (|g| + eps), per element: one ulp of the weight (the
+# new weight's f32 rounding) and this share of the learning rate
+ADAPT_UPDATE_RTOL = 1e-5
+# "fused" (the bf16 graph) against "xla" on the card, from the same window.
+# The self-supervised losses within the loss's 0.5 % of PERF.md section 2.
+# The denoised crops within ROUTES_DENO_RMS; "sup", the MSE against the
+# clean crops, within 2 sqrt(mse) r + r^2 of xla's MSE, r = ROUTES_DENO_RMS:
+# the most that an output error of rms r moves an MSE.
+ADAPT_ROUTE_RTOL = 5e-3
+# ... and each kind of parameter's gradient (GRAD_KINDS, each kind as one
+# vector) no farther from xla's, |fused - xla| / |xla|, than BF16_GRAPH_RATIO
+# times the JAX package's bf16 graph ("fused") from its f32 graph ("xla") on
+# the same window: the rule of tests/test_torch_bf16_graph.py. The JAX
+# package's distances, measured on the CPU by
+# scripts/torch_adapt_bf16_grad.py (the port's own there: 0.96-1.05 times
+# them)
+BF16_GRAPH_RATIO = 1.25
+ADAPT_JAX_BF16_GRAD_REL = {
+    "f2f": {"conv": 0.3906, "bn_scale": 0.4029, "bn_bias": 0.5828},
+    "stnls": {"conv": 0.2770, "bn_scale": 0.2593, "bn_bias": 0.4006},
+    "sup": {"conv": 0.3770, "bn_scale": 0.3624, "bn_bias": 0.5742}}
+# the parameter kinds of a DnCNN by name: the convolutions' weights, the
+# BatchNorm scales, the BatchNorm biases
+GRAD_KINDS = {
+    "conv": lambda n: n.startswith("conv"),
+    "bn_scale": lambda n: n.startswith("bn") and n.endswith("weight"),
+    "bn_bias": lambda n: n.startswith("bn") and n.endswith("bias")}
+# non_local_search of a 128x128 window on the card against the CPU: the
+# distances relative to the largest; the share of equal inds (a near tie
+# may swap two offsets)
+SEARCH_CPU_RTOL, SEARCH_INDS_SHARE = 1e-4, 0.99
 REPLACES = {
     "fwd_layer": "frame2frame_tpu/ops/fused_stack.py:673",
     "fwd_layer_train": "frame2frame_tpu/ops/fused_stack.py:673",
@@ -1535,14 +1613,14 @@ def body_of(ti, plan):
 
 
 def hold_inner_loop(torch, ti, tag, arrays, max_iters, epsilon=0.01,
-                    plan="shape"):
+                    plan="shape", tau=0.25, lambda_=0.2, theta=0.3):
     """One launch of the flow's inner loop against its plain version: equal
     iteration counts a pair, the same bits in every output, the same bits on
     a second run. ``plan="shape"`` takes the body that ``cluster_plan``
     gives the shape; a plan or ``None`` (the cooperative body) takes that
     body (``body_of``). Returns (iterations a pair, max |kernel - plain|,
     max |plain|)."""
-    kw = dict(tau=0.25, lambda_=0.2, theta=0.3, epsilon=epsilon,
+    kw = dict(tau=tau, lambda_=lambda_, theta=theta, epsilon=epsilon,
               max_iters=max_iters, return_iterations=True)
 
     def run():
@@ -3188,6 +3266,428 @@ def registry_phase(torch, fs, psnr):
     return launches, out
 
 
+@functools.lru_cache(maxsize=1)
+def adapt_clip():
+    """The adaptation's clip: (noisy, clean) of ``ADAPT_T`` frames as
+    (1, T, H, W, 1), and the held-out (noisy, clean) frames."""
+    clean, noisy, _ = moving_frames(ADAPT_T + ADAPT_HELD, seed=ADAPT_SEED)
+    return ((noisy[None, :ADAPT_T], clean[None, :ADAPT_T]),
+            (noisy[ADAPT_T:], clean[ADAPT_T:]))
+
+
+def adapt_state(conv_impl, device=None, nwin=1):
+    """The pretrained DnCNN-17 through ``load_model`` in a ``TrainState``
+    with Adam at ``ADAPT_LR`` on a cosine schedule over ``nwin`` windows:
+    ``(state, sched)``."""
+    import frame2frame_tpu_torch as port
+    from frame2frame_tpu_torch.train.schedules import make_optimizer
+    from frame2frame_tpu_torch.train.state import TrainState
+
+    loaded = port.load_model({
+        "net_name": "dncnn", "channels": 1, "num_of_layers": 17,
+        "residual": True, "conv_impl": conv_impl, "pretrained_load": True,
+        "pretrained_path": str(CKPT)}, device=device)
+    tx, sched = make_optimizer({"scheduler_name": "cosa",
+                                "lr_init": ADAPT_LR, "nepochs": 1},
+                               steps_per_epoch=nwin)
+    return TrainState.create(loaded.model, loaded.variables, tx,
+                             residual=True), sched
+
+
+def adapt_first_window(torch, lt, conv_impl, device=None,
+                       plain_backward=False, dtype=None):
+    """One window of loss ``lt`` without flow (the same inputs on every
+    route and device), the model in ``dtype`` where given: its loss,
+    denoised and clean crops, and each parameter's gradient, weight before
+    and after the update (float64 on the host), and the update's learning
+    rate. The wrapper runs as it is; its forward and update are wrapped to
+    read them."""
+    import frame2frame_tpu_torch as port
+    from frame2frame_tpu_torch.train import adapt as adapt_mod
+    from frame2frame_tpu_torch.train.schedules import adam_lr_factor
+
+    (vid_n, vid_c), _ = adapt_clip()
+    cfg = dict(ADAPT_CFG, flow=False, adapt_nsteps=1)
+    st, sched = adapt_state(conv_impl, device)
+    st.model.plain_backward = plain_backward
+    if dtype is not None:
+        st.model.to(dtype)
+    wrapper = port.get_loss_fxn(cfg, lt)
+    rec, fwd, update = {}, wrapper._fwd_video, adapt_mod.apply_gradients
+
+    def params64(model):  # copies, also where a float64 CPU view would do
+        return {n: p.detach().double().cpu().clone()
+                for n, p in model.named_parameters()}
+
+    def fwd_read(apply_fn, vid):
+        deno = fwd(apply_fn, vid)
+        rec["deno"] = deno.detach().double().cpu()
+        return deno
+
+    def update_read(state, *a, **kw):
+        rec["grad"] = {n: p.grad.detach().double().cpu().clone()
+                       for n, p in state.model.named_parameters()}
+        rec["before"] = params64(state.model)
+        rec["lr"] = (float(state.tx.sched(state.step))
+                     * adam_lr_factor(state.step + 1))
+        return update(state, *a, **kw)
+
+    wrapper._fwd_video = fwd_read
+    adapt_mod.apply_gradients = update_read
+    try:
+        st, info = wrapper(st, vid_n, vid_c, seed=ADAPT_SEED, sched=sched)
+    finally:
+        adapt_mod.apply_gradients = update
+    rec["after"] = params64(st.model)
+    rec["loss"] = info.loss[0]
+    # the window's clean crops: the wrapper's own crop of the clip
+    _, cc = wrapper._crops(vid_n, vid_c, 0, np.random.default_rng(ADAPT_SEED))
+    rec["clean"] = torch.from_numpy(
+        np.asarray(cc, np.float64).reshape(rec["deno"].shape))
+    return rec
+
+
+def grad_distance(got, ref):
+    """A gradient against a reference, by parameter kind (``GRAD_KINDS``,
+    each kind's leaves as one vector): ``{kind: {"rel": |got - ref| /
+    |ref|, "cosine", "norm_ratio"}}``; ``got`` and ``ref`` map names to
+    float64 arrays or tensors."""
+    out = {}
+    for kind, of in GRAD_KINDS.items():
+        names = sorted(n for n in ref if of(n))
+        r = np.concatenate([np.asarray(ref[n], np.float64).ravel()
+                            for n in names])
+        g = np.concatenate([np.asarray(got[n], np.float64).ravel()
+                            for n in names])
+        nr, ng = float(np.linalg.norm(r)), float(np.linalg.norm(g))
+        out[kind] = {"rel": float(np.linalg.norm(g - r)) / nr,
+                     "cosine": float(g @ r) / (nr * ng),
+                     "norm_ratio": ng / nr}
+    return out
+
+
+def adapt_phase(torch, fs, psnr):
+    """The adaptation path (``get_loss_fxn(cfg, t)`` -> wrapper -> loss ->
+    Adam): the pretrained DnCNN-17 through ``load_model`` on a 7-frame 540p
+    clip, for ``f2f``, ``stnls`` and ``sup`` at the registry's defaults, on
+    ``conv_impl="fused"``; holds against the CPU, the f32 route, the plain
+    versions of the path's kernels on the inputs the path gave them, and the
+    wrappers' launches a window. Returns (launch counts of the fused runs,
+    timings and checks)."""
+    import frame2frame_tpu_torch as port
+    from frame2frame_tpu_torch.flow import tvl1 as tvl1_mod
+    from frame2frame_tpu_torch.flow import tvl1_inner as ti
+    from frame2frame_tpu_torch.flow.api import run_flows
+    from frame2frame_tpu_torch.ops import conv3x3 as c3
+    from frame2frame_tpu_torch.ops import conv_dw as cdw
+    from frame2frame_tpu_torch.ops import nls
+    from frame2frame_tpu_torch.train import adapt as adapt_mod
+    from frame2frame_tpu_torch.utils.timer import cuda_time_ms
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    (vid_n, vid_c), (held_n, held_c) = adapt_clip()
+    noisy = np.concatenate([vid_n[0], held_n])
+    out = {}
+
+    def rel_by_leaf(got, ref):
+        return {n: float((got[n] - r).abs().max() / r.abs().max())
+                for n, r in ref.items()}
+
+    # (a) one window on the f32 route, card against CPU; "fused" against
+    # "xla" on the card, and against its own backward on the plain dW
+    for lt in ADAPT_LOSSES:
+        card = adapt_first_window(torch, lt, "xla")
+        cpu = adapt_first_window(torch, lt, "xla", device="cpu")
+        card64 = adapt_first_window(torch, lt, "xla", dtype=torch.float64)
+        cpu64 = adapt_first_window(torch, lt, "xla", device="cpu",
+                                   dtype=torch.float64)
+        fused = adapt_first_window(torch, lt, "fused")
+        fused_plain = adapt_first_window(torch, lt, "fused",
+                                         plain_backward=True)
+        hold = {"xla_card": card["loss"], "xla_cpu": cpu["loss"],
+                "fused_card": fused["loss"],
+                "loss_rel_err_vs_cpu":
+                    abs(card["loss"] - cpu["loss"]) / cpu["loss"]}
+        w_err = max(float((card["after"][n] - r).abs().max())
+                    for n, r in cpu["after"].items())
+        w_scale = max(float(r.abs().max()) for r in cpu["after"].values())
+        hold["weights_f32_rel_err_vs_cpu"] = w_err / w_scale
+        # the gradients: f32 on each device against float64 (the f32
+        # rounding of a gradient near the loss's minimum), and float64 on the
+        # card against float64 on the CPU, by leaf
+        hold["grad_f32"] = {
+            "card_vs_cpu": grad_distance(card["grad"], cpu["grad"]),
+            "card_vs_f64": grad_distance(card["grad"], card64["grad"]),
+            "cpu_vs_f64": grad_distance(cpu["grad"], cpu64["grad"])}
+        grad_cpu = rel_by_leaf(card64["grad"], cpu64["grad"])
+        worst = max(grad_cpu, key=grad_cpu.get)
+        hold["grad_f64_worst_vs_cpu"] = [worst, grad_cpu[worst]]
+        # ... and the float64 window's update, by leaf against its largest
+        step_cpu = rel_by_leaf(
+            {n: card64["after"][n] - w for n, w in card64["before"].items()},
+            {n: cpu64["after"][n] - w for n, w in cpu64["before"].items()})
+        worst_step = max(step_cpu, key=step_cpu.get)
+        hold["update_f64_worst_vs_cpu"] = [worst_step, step_cpu[worst_step]]
+        # Adam's first step from the card's own gradient: every weight moved
+        # by lr * g / (|g| + eps), up to the new weight's rounding
+        upd = 0.0
+        for n, g in card["grad"].items():
+            step = card["after"][n] - card["before"][n]
+            want = -card["lr"] * g / (g.abs() + 1e-8)
+            w32 = card["before"][n].float().abs().numpy()
+            tol = (np.spacing(np.maximum(w32, np.abs(
+                card["after"][n].float().numpy()))).astype(np.float64)
+                + ADAPT_UPDATE_RTOL * card["lr"])
+            excess = ((step - want).abs().numpy() / tol).max()
+            upd = max(upd, float(excess))
+        hold["update_err_over_tol"] = upd
+        check(hold["loss_rel_err_vs_cpu"] <= ADAPT_CPU_RTOL,
+              f"adapt {lt}: card loss off the CPU's by "
+              f"{hold['loss_rel_err_vs_cpu']}")
+        check(grad_cpu[worst] <= ADAPT_F64_RTOL,
+              f"adapt {lt}: float64 card gradient of {worst} off the CPU's "
+              f"by {grad_cpu[worst]} of its largest")
+        check(step_cpu[worst_step] <= ADAPT_CPU_RTOL,
+              f"adapt {lt}: float64 card update of {worst_step} off the "
+              f"CPU's by {step_cpu[worst_step]} of its largest")
+        check(upd <= 1.0, f"adapt {lt}: the update is off Adam's first step "
+              f"from the card's gradient by {upd} x its tolerance")
+        # "fused" (kernel B in the backward) against the plain dW from the
+        # same forward
+        kb = rel_by_leaf(fused["grad"], fused_plain["grad"])
+        worst = max(kb, key=kb.get)
+        hold["fused_grad_worst_vs_plain_dw"] = [worst, kb[worst]]
+        check(fused["loss"] == fused_plain["loss"],
+              f"adapt {lt}: the fused forward differs between two runs")
+        check(kb[worst] <= CONV_STEP_RTOL,
+              f"adapt {lt}: fused gradient of {worst} off the plain dW's by "
+              f"{kb[worst]}")
+        # "fused" against "xla": loss, denoised crops, gradients
+        e = fused["deno"] - card["deno"]
+        rms = float(e.pow(2).mean().sqrt())
+        mse_x = float((card["deno"] - card["clean"]).pow(2).mean())
+        r = ROUTES_DENO_RMS
+        hold["fused_vs_xla_rel"] = (abs(fused["loss"] - card["loss"])
+                                    / card["loss"])
+        hold["fused_vs_xla_deno_rms"] = rms
+        check(rms <= r, f"adapt {lt}: fused denoised crops off xla's by rms "
+              f"{rms}")
+        if lt == "sup":
+            bound = 2 * np.sqrt(mse_x) * r + r * r
+            hold["fused_vs_xla_db"] = 10 * np.log10(fused["loss"]
+                                                    / card["loss"])
+            hold["sup_mse_bound"] = bound
+            hold["sup_clean_crops_mse"] = mse_x
+            check(abs(mse_x - card["loss"]) <= 1e-5 * card["loss"],
+                  f"adapt sup: the clean crops read back give MSE {mse_x}, "
+                  f"the wrapper {card['loss']}")
+            check(abs(fused["loss"] - card["loss"]) <= bound,
+                  f"adapt sup: fused MSE {fused['loss']} off xla's "
+                  f"{card['loss']} by more than {bound} "
+                  f"({hold['fused_vs_xla_db']:.4f} dB)")
+        else:
+            check(hold["fused_vs_xla_rel"] <= ADAPT_ROUTE_RTOL,
+                  f"adapt {lt}: fused first loss off xla's by "
+                  f"{hold['fused_vs_xla_rel']}")
+        # the bf16 graph's gradient, by parameter kind, no farther from
+        # xla's than BF16_GRAPH_RATIO times the JAX package's own bf16
+        # graph from its f32 graph on the same window
+        dist = grad_distance(fused["grad"], card["grad"])
+        hold["fused_vs_xla_grad"] = dist
+        hold["jax_bf16_vs_f32_grad_rel"] = ADAPT_JAX_BF16_GRAD_REL[lt]
+        print(f"adapt {lt} first window: " + json.dumps(hold), flush=True)
+        for kind, d in dist.items():
+            bound = BF16_GRAPH_RATIO * ADAPT_JAX_BF16_GRAD_REL[lt][kind]
+            check(d["rel"] <= bound,
+                  f"adapt {lt}: fused {kind} gradient {d['rel']} off xla's, "
+                  f"more than {bound} ({BF16_GRAPH_RATIO} x the JAX "
+                  "package's bf16 graph)")
+        out[f"{lt}/first_window"] = hold
+        del card, cpu, card64, cpu64, fused, fused_plain
+    torch.cuda.empty_cache()
+
+    # (b) the search of a stnls window (3 frames, 128x128) on the card
+    # against the CPU, with its time and the refine's
+    crop = torch.from_numpy(noisy[None, :3, 200:328, 300:428]).to(dev)
+    flows = run_flows(crop, True, ftype="tvl1", device=dev)
+    kw = dict(ws=ADAPT_CFG["ws"], wt=1, ps=ADAPT_CFG["ps"],
+              k=ADAPT_CFG["k"], stride0=ADAPT_CFG["stride0"])
+    d_card, i_card = nls.non_local_search(crop, flows, **kw)
+    d_cpu, i_cpu = nls.non_local_search(
+        crop.cpu(), {k: v.cpu() for k, v in flows.items()}, **kw)
+    d_err = float((d_card.cpu() - d_cpu).abs().max())
+    d_scale = float(d_cpu.abs().max())
+    same = float((i_card.cpu() == i_cpu).all(-1).float().mean())
+    search_ms = cuda_time_ms(lambda: nls.non_local_search(crop, flows, **kw),
+                             iters=5)
+    refine_ms = cuda_time_ms(lambda: nls.refine_search(
+        crop, crop, i_card, wt=1, ps=ADAPT_CFG["ps"],
+        stride0=ADAPT_CFG["stride0"]), iters=5)
+    prof = profile_call(torch, lambda: nls.non_local_search(crop, flows,
+                                                            **kw), iters=3)
+    out["search_128"] = {
+        "dists_rel_err_vs_cpu": d_err / d_scale, "inds_equal_share": same,
+        "search_ms": search_ms, "refine_ms": refine_ms,
+        "search_host_ms": prof["ms"], "search_device_ms": prof["device_ms"],
+        "device_kernels": prof["device_kernels"],
+        "top_kernels": prof["top_kernels"]}
+    print("adapt search 128x128: " + json.dumps(out["search_128"]),
+          flush=True)
+    check(d_err <= SEARCH_CPU_RTOL * d_scale,
+          f"non_local_search: card off the CPU by {d_err} of {d_scale}")
+    check(same >= SEARCH_INDS_SHARE,
+          f"non_local_search: only {same} of the inds equal the CPU's")
+
+    # the flow launches of one solve at a window's shape (5 frames for f2f,
+    # 3 for stnls): the wrappers solve once a window
+    flow_launches = {}
+    for nf in (5, 3):
+        before = fs.launch_counts()["tvl1_inner_loop"]
+        run_flows(torch.from_numpy(noisy[None, :nf, :128, :128]).to(dev),
+                  True, ftype="tvl1", device=dev)
+        torch.cuda.synchronize()
+        flow_launches[nf] = fs.launch_counts()["tvl1_inner_loop"] - before
+    check(min(flow_launches.values()) > 0, "run_flows launched no inner loop")
+
+    def warm_up_and_hold(lt, st, sched):
+        """One "fused" window with flow, its kernels' inputs read as the
+        path hands them over (kernel B: each convolution's x and cotangent;
+        the inner loop: every launch of the window's flow, all its pairs in
+        one batch); then each kernel against its plain version on them."""
+        seen_b, seen_flow = [], []
+        kernel_b, inner = c3.dw_conv3x3, tvl1_mod.tvl1_inner_loop
+
+        def read_b(x, g):
+            seen_b.append((x.detach().clone(), g.detach().clone()))
+            return kernel_b(x, g)
+
+        def read_inner(*a, **kw):
+            seen_flow.append(([t.clone() for t in a[:10]], a[10:15]))
+            return inner(*a, **kw)
+
+        # the solver binds its inner loop when it is built: a new one reads
+        c3.dw_conv3x3, tvl1_mod.tvl1_inner_loop = read_b, read_inner
+        tvl1_mod._make_solver.cache_clear()
+        try:
+            port.get_loss_fxn(dict(ADAPT_CFG, adapt_nsteps=1), lt)(
+                st, vid_n, vid_c, seed=ADAPT_SEED, sched=sched)
+            torch.cuda.synchronize()
+        finally:
+            c3.dw_conv3x3, tvl1_mod.tvl1_inner_loop = kernel_b, inner
+            tvl1_mod._make_solver.cache_clear()
+        check(len(seen_b) == 17, f"adapt {lt}: {len(seen_b)} dW calls in a "
+              "window, expected 17")
+        b_err = {}
+        for x, g in seen_b:
+            got, ref = cdw.dw_conv3x3(x, g), cdw.dw_conv3x3_plain(x, g)
+            torch.cuda.synchronize()
+            err, scale = rel_err(got, ref)
+            shape = (f"{tuple(x.shape[:3])} {x.shape[-1]}->{g.shape[-1]} "
+                     f"{str(x.dtype)[6:]}")
+            check(bool(torch.isfinite(got).all()) and err <= CONV_RTOL * scale,
+                  f"adapt {lt}: kernel B at {shape} off plain by "
+                  f"{err} of {scale}")
+            b_err[shape] = max(b_err.get(shape, 0.0), err / scale)
+        levels = {}
+        for k, (arrays, (tau, lam, theta, eps, mi)) in enumerate(seen_flow):
+            n, err, _ = hold_inner_loop(
+                torch, ti, f"adapt {lt} flow launch {k}", arrays, mi,
+                epsilon=eps, tau=tau, lambda_=lam, theta=theta)
+            lv = levels.setdefault("x".join(map(str, arrays[0].shape)),
+                                   {"launches": 0, "iterations": []})
+            lv["launches"] += 1
+            lv["iterations"].append(n)
+        held = {"kernel_b_rel_err": b_err, "tvl1_inner_levels": levels}
+        print(f"adapt {lt} kernels on the path's inputs (kernel B within "
+              f"{CONV_RTOL} of plain, the inner loop bit-equal): "
+              + json.dumps(held), flush=True)
+        check(lt == "sup" or len(seen_flow) == flow_launches[
+            port.get_loss_fxn(dict(ADAPT_CFG), lt).nf],
+              f"adapt {lt}: {len(seen_flow)} inner loops in a window's flow")
+        return held
+
+    # (c) the adaptation on "fused" at full width: windows, host, stream and
+    # device ms a window, peak memory, launches, losses, PSNR of the
+    # held-out frames
+    launches = {k: 0 for k in fs.launch_counts()}
+    for lt in ADAPT_LOSSES:
+        wrapper = port.get_loss_fxn(dict(ADAPT_CFG), lt)
+        nwin = wrapper.windows(ADAPT_T)
+        st, sched = adapt_state("fused", nwin=nwin)  # warm-up, thrown away
+        held = warm_up_and_hold(lt, st, sched)
+        st, sched = adapt_state("fused", nwin=nwin)
+        psnr_before = [psnr(held_c[k], st.eval_apply(held_n[k:k + 1])[0])
+                       for k in range(ADAPT_HELD)]
+        # each window ends in its update: mark the host clock and the
+        # stream there (measurement only; the update runs as it is)
+        marks, update = [], adapt_mod.apply_gradients
+
+        def marked(*a, **kw):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((time.perf_counter(), ev))
+            return update(*a, **kw)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        adapt_mod.apply_gradients = marked
+        fs.reset_launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        try:
+            st, info = wrapper(st, vid_n, vid_c, seed=ADAPT_SEED, sched=sched)
+            torch.cuda.synchronize()
+        finally:
+            adapt_mod.apply_gradients = update
+        counts = fs.launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        spans = [(t0, start)] + marks
+        host = [(b[0] - a[0]) * 1e3 for a, b in zip(spans, spans[1:])]
+        stream = [a[1].elapsed_time(b[1]) for a, b in zip(spans, spans[1:])]
+        for k, n in counts.items():
+            launches[k] += n
+        want = {"dw_conv3x3": 17 * nwin,
+                "tvl1_inner_loop": 0 if lt == "sup"
+                else flow_launches[wrapper.nf] * nwin}
+        for k, n in counts.items():
+            check(n == want.get(k, 0), f"adapt {lt}: {k} launched {n} "
+                  f"times in {nwin} windows, expected {want.get(k, 0)}")
+        psnr_after = [psnr(held_c[k], st.eval_apply(held_n[k:k + 1])[0])
+                      for k in range(ADAPT_HELD)]
+        check(len(info.loss) == nwin and np.isfinite(info.loss).all(),
+              f"adapt {lt}: losses {info.loss}")
+        check(np.isfinite(psnr_after).all(), f"adapt {lt}: PSNR {psnr_after}")
+        one = dict(ADAPT_CFG, adapt_nsteps=1)
+        prof = profile_call(torch, lambda: port.get_loss_fxn(one, lt)(
+            st, vid_n, vid_c, seed=ADAPT_SEED, sched=sched), iters=3)
+        out[lt] = {
+            "windows": nwin, "host_ms_a_window": host,
+            "median_host_ms": float(np.median(host)),
+            # CUDA events recorded as the host reaches each update: the
+            # stream's wall time, which the host paces here
+            "stream_ms_a_window": stream,
+            "median_stream_ms": float(np.median(stream)),
+            # the profiler's device kernel time of one window
+            "device_ms_a_window": prof["device_ms"],
+            "profiled": {k: prof[k] for k in (
+                "ms", "busy_share", "device_kernels", "top_kernels")},
+            "peak_gb": peak_gb, "kernel_b_launches": counts["dw_conv3x3"],
+            "tvl1_inner_launches": counts["tvl1_inner_loop"],
+            "first_loss": info.loss[0], "last_loss": info.loss[-1],
+            "lr": info.lr, "psnr_held_before": psnr_before,
+            "psnr_held_after": psnr_after, "kernels_held": held}
+        print(f"adapt {lt}: " + json.dumps(out[lt]), flush=True)
+        del st
+        torch.cuda.empty_cache()
+
+    elapsed = time.perf_counter() - t_phase
+    out["phase_s"] = elapsed
+    print(f"phase time: adapt {elapsed:.1f} s", flush=True)
+    return launches, out
+
+
 def main():
     if not (REPO / "frame2frame_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke: the port's package frame2frame_tpu_torch is not "
@@ -3266,6 +3766,8 @@ def main():
         spatial_launches, spatial = spatial_phase(torch, fs, psnr, variables)
         torch.cuda.empty_cache()
         registry_launches, registry = registry_phase(torch, fs, psnr)
+        torch.cuda.empty_cache()
+        adapt_launches, adapt = adapt_phase(torch, fs, psnr)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -3277,7 +3779,8 @@ def main():
     # conv_<impl>: the engine on a conv_impl route; stream: the CLI's loop
     # on the flat route with AsyncFlowSolver; stream_pallas: the loop on
     # the "pallas" route; spatial: the H-split fine-tune and serving;
-    # registry: load_model's apply of a "fused" DnCNN), and on no other path
+    # registry: load_model's apply of a "fused" DnCNN; adapt: the
+    # get_loss_fxn wrappers on a "fused" DnCNN), and on no other path
     ends = ("flat", "flow", "stream")
     fused = ("training",) + ends + ("spatial",)
     conv_paths = tuple(f"conv_{impl}" for impl in CONV_ROUTES)
@@ -3286,14 +3789,15 @@ def main():
              "fwd_layer_train": fused, "bwd_layer": fused,
              "first_conv": ends, "last_loss_fwd": ends,
              "last_loss_bwd": ends, "first_dw": ends,
-             "tvl1_inner_loop": ("flow", "stream"),
+             "tvl1_inner_loop": ("flow", "stream", "adapt"),
              "conv3x3_fwd": ("conv_pallas", "stream_pallas"),
-             "dw_conv3x3": conv_paths + ("stream_pallas",)}
+             "dw_conv3x3": conv_paths + ("stream_pallas", "adapt")}
     by_path = {"serving": serve_launches, "training": train_launches,
                "flat": flat_launches, "flow": flow_launches,
                "stream": stream_launches["stream"],
                "stream_pallas": stream_launches["stream_pallas"],
                "spatial": spatial_launches, "registry": registry_launches,
+               "adapt": adapt_launches,
                **{f"conv_{impl}": conv_launches[impl]
                   for impl in CONV_ROUTES}}
     for name, on in paths.items():
@@ -3324,7 +3828,8 @@ def main():
     print(json.dumps({"kernels": kernels, "serving": timings,
                       "training": training, "flow": flow,
                       "conv_impl": conv_impl, "streaming": stream,
-                      "spatial": spatial, "registry": registry}))
+                      "spatial": spatial, "registry": registry,
+                      "adapt": adapt}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,8 +12,10 @@ random crops), the streaming loop
 path, the online fine-tune on the JAX package's routes (the whole-iteration
 flat step, which the engine takes where it is eligible, the per-iteration
 body on ``fused_train_apply``, and the module's own forward for every
-``conv_impl``), and TV-L1 optical flow with the solver that feeds the
-fine-tune.
+``conv_impl``), TV-L1 optical flow with the solver that feeds the
+fine-tune, and the loss family with the test-time adaptation path
+(``get_loss_fxn(cfg)`` -> a wrapper ``(state, noisy, clean) -> (state,
+info)``).
 
 - models:  the registry (``load_model``, ``extract_model_config``,
            ``load_checkpoint``), DnCNN module with its ``conv_impl`` routes
@@ -32,9 +34,12 @@ fine-tune.
            3x3 convolution and its weight gradient of the ``conv_impl``
            routes (``conv3x3``, ``conv_dw``), their build (``_build``) and
            the library convolutions with TF32 off (``_common``), flow
-           warping and occlusion masks (``warp``),
+           warping and occlusion masks (``warp``), the non-local search as
+           a dense cost volume (``nls``), SSIM (``ssim``),
            and the flow solver's operators in plain torch ops (``grad``,
            ``gaussian``, ``interp``, ``pyramid``)
+- losses:  the registry ``get_loss_fxn``; warped (frame2frame), stnls
+           (``DnlsLoss``), Nb2Nb, B2U, combo, sup / n2n
 - flow:    TV-L1 (``tvl1``: ``make_tvl1_solver``, ``make_batched_tvl1``,
            ``tvl1_flow``), its inner loop as one CUDA kernel with its plain
            version (``tvl1_inner``), the video API (``api``: ``run_flows``,
@@ -42,7 +47,9 @@ fine-tune.
 - train:   ``OnlineDenoiser`` (``process_frame``, ``denoise_only``,
            ``denoise_batch``), ``AsyncFlowSolver``, ``torch_adam``,
            ``run_blind_denoising``, the flat step (``flat_step``:
-           ``flat_net_loss``, ``run_flat_scan``)
+           ``flat_net_loss``, ``run_flat_scan``), the adaptation wrappers
+           (``adapt``), ``TrainState`` (``state``), schedules and
+           optimizers (``schedules``)
 - io:      ``.flo`` files, image readers and writers (numpy; PGM without
            PIL, other formats with PIL on demand), videos as directories of
            frames (``video``)
@@ -57,7 +64,7 @@ fine-tune.
            trace, named regions and memory snapshot (``profiling``)
 """
 
-__version__ = "0.6.0"
+__version__ = "0.7.0"
 
 from . import config
 from .config import Config, cfg_grid, dcat, extract_pairs, optional
@@ -75,3 +82,12 @@ def extract_model_config(cfg):
     from . import models
 
     return models.extract_model_config(cfg)
+
+
+def get_loss_fxn(cfg, loss_type=None):
+    """Loss registry (the reference's missing ``losses.get_loss_fxn``,
+    lib/frame2frame/__init__.py:7, used at scripts/instances_adapt.py:216):
+    an adaptation wrapper ``(state, noisy, clean) -> (state, info)``."""
+    from . import losses
+
+    return losses.get_loss_fxn(cfg, loss_type)

@@ -108,20 +108,39 @@ def load_model(cfg, device=None):
                   video_model=mtype in FASTDVD_NAMES)
 
 
-def _train_apply(model, arch, x, kw):
-    """One training-mode forward; returns (out, {"batch_stats": the moved
-    statistics}) and gives the module its statistics back."""
+def arch_of(model):
+    """The module of ``model``'s architecture (``dncnn`` or ``fastdvdnet``),
+    which holds its JAX-tree converters."""
+    if isinstance(model, DnCNN):
+        return dncnn
+    if isinstance(model, (FastDVDnet, FastDVDnetVideo)):
+        return fastdvdnet
+    raise TypeError(f"no converters for {type(model).__name__}")
+
+
+def _train_forward(model, x, kw, read):
+    """One training-mode forward; returns (out, ``read()`` taken while the
+    module holds the moved statistics) and gives the module its statistics
+    back."""
     buffers = [b for _, b in model.named_buffers()]
     kept = [b.clone() for b in buffers]
     model.train()
     try:
         out = model(x, **kw)
-        stats = arch.to_jax_variables(model)["batch_stats"]
+        moved = read()
     finally:
         model.eval()
         with torch.no_grad():
             for b, k in zip(buffers, kept):
                 b.copy_(k)
+    return out, moved
+
+
+def _train_apply(model, arch, x, kw):
+    """One training-mode forward; returns (out, {"batch_stats": the moved
+    statistics}) and gives the module its statistics back."""
+    out, stats = _train_forward(
+        model, x, kw, lambda: arch.to_jax_variables(model)["batch_stats"])
     return out, {"batch_stats": stats}
 
 
