@@ -150,7 +150,32 @@ Phases, any failure exits non-zero:
    window, peak memory, exactly 17 kernel B and one flow's
    ``tvl1_inner_loop`` launches a window (none for ``sup``), first and last
    loss, PSNR of the held-out frames before and after;
-14. a JSON line of per-kernel numbers (launches by path: each kernel is
+14. the offline trainer (``train/trainer.run``, ``offline_phase``): the
+   pretrained DnCNN-17 on "fused" over two 5-frame 540p clips of the mixed
+   synthetic texture, two epochs of the warped loss on TV-L1 flows solved
+   each step, Adam at 1e-4; one step on a 128x128 crop (flows handed in)
+   on the f32 "xla" route on the card against the CPU (the loss within
+   1e-4, the updated weights within 1e-4 of the largest but for at most
+   0.5 % of the elements, by at most two learning rates) and on "fused"
+   against "xla" (the loss 0.5 %); kernel B at each of a full-width step's
+   17 convolutions and the inner loop at each launch of its flow against
+   their plain versions; then ``trainer.run``: exactly 17 kernel B and one
+   solve's inner launches a step, the final checkpoint read back bit for
+   bit, the CSV's rows and the files written, finite ``val_psnr`` and
+   ``train_loss``, host ms a step, profiled device ms a step, busy share
+   and peak memory;
+15. the evaluation pipeline (``eval/test.run``, ``eval_phase``): a 4-frame
+   540p PGM clip of the mixed texture moving (1, 2) px a frame, the
+   pretrained DnCNN-17 on "fused", ``read_flows``: the first run (chunked,
+   256 px tiles, overlap 0.1) solves the flows on the card into 8 ``.flo``
+   sidecars (their median within 0.1 px of the motion), the later runs read
+   them back bit for bit with no inner launch; the plain run's clip
+   bit-equal to ``load_model(cfg).apply`` on exactly 15 ``fwd_layer``
+   launches, with a gain over noisy and its timer and memory meter; the x8
+   self-ensemble no more than 0.05 dB below it, the chunked run within
+   0.1 dB; internal adaptation (one f2f window, 17 kernel B); the B2U second
+   pass (``psnrs_pp``); each run's metrics, launches, timers and wall time;
+16. a JSON line of per-kernel numbers (launches by path: each kernel is
    launched on every path it belongs to and on no other), then the card
    line, then the result line ``{"ok": true, "device": {...}}``.
 
@@ -372,6 +397,47 @@ GRAD_KINDS = {
 # distances relative to the largest; the share of equal inds (a near tie
 # may swap two offsets)
 SEARCH_CPU_RTOL, SEARCH_INDS_SHARE = 1e-4, 0.99
+# the offline trainer (trainer.run) at full width: the pretrained DnCNN-17
+# on "fused" over two 5-frame 540p clips of the mixed synthetic texture,
+# two epochs, the warped loss on TV-L1 flows solved each step
+OFFLINE_CFG = dict(
+    net_name="dncnn", channels=1, num_of_layers=17, residual=True,
+    conv_impl="fused", pretrained_load=True, pretrained_path=str(CKPT),
+    dname="synthetic", texture="mixed", isize_data=(540, 960), nvideos=2,
+    nframes_data=5, ntype="g", sigma=25, nepochs=2, crit_name="warped",
+    flow=True, flow_method="tvl1", lr_init=1e-4, seed=0, uuid="offline")
+OFFLINE_STEPS = 4  # 2 videos x 2 epochs at batch size 1
+# one step on a 128x128 crop of the clip (3 frames, flows handed in): "xla"
+# on the card against the CPU, the loss within ADAPT_CPU_RTOL and the
+# updated weights within OFFLINE_WEIGHT_RTOL of the largest weight, but for
+# at most OFFLINE_KINK_SHARE of the elements: where an f32 gradient element
+# is at its rounding noise its sign, and so Adam's first step, differs
+# between the devices (adapt_phase's note above), and BatchNorm trains here;
+# those elements within two learning rates. "fused" against "xla" on the
+# card: the loss within ADAPT_ROUTE_RTOL
+OFFLINE_WEIGHT_RTOL = 1e-4
+OFFLINE_KINK_SHARE = 5e-3
+OFFLINE_CROP = (slice(0, 3), slice(200, 328), slice(300, 428))
+# the evaluation pipeline (eval.test.run) at full width: the pretrained
+# DnCNN-17 on "fused" over a 4-frame 540p PGM clip of the mixed texture
+# moving EVAL_SHIFT (dy, dx) pixels a frame, noise sigma 25, flows solved
+# once into .flo sidecars
+EVAL_T, EVAL_SHIFT = 4, (1, 2)
+EVAL_FLOW_TOL = 0.1  # px, the solved flows' median against the shift
+EVAL_AUG_TOL = 0.05  # dB below the plain run at most
+# the chunked run (EVAL_CHUNK tiles) against the plain run on the pixels
+# that lie deeper than the network's receptive field (EVAL_CHUNK_R px,
+# one a 3x3 layer) inside every tile that holds them, on the [0, 255]
+# scale; nearer a tile's inner edge a tile sees zeros where the frame has
+# pixels, so there the clip differs, as in the JAX package
+EVAL_CHUNK = dict(spatial_chunk_size=256, spatial_chunk_overlap=0.1)
+EVAL_CHUNK_R = 17
+EVAL_CHUNK_INTERIOR_ATOL = 1e-3
+EVAL_CFG = dict(
+    net_name="dncnn", channels=1, num_of_layers=17, residual=True,
+    conv_impl="fused", pretrained_load=True, pretrained_path=str(CKPT),
+    dname="evalset", dset="te", vid_name="vid00", sigma=25, read_flows=True,
+    save_deno=False, seed=123, lr_init=1e-4)
 REPLACES = {
     "fwd_layer": "frame2frame_tpu/ops/fused_stack.py:673",
     "fwd_layer_train": "frame2frame_tpu/ops/fused_stack.py:673",
@@ -3366,6 +3432,82 @@ def grad_distance(got, ref):
     return out
 
 
+def read_path_kernels(torch, run):
+    """Run ``run()`` with kernel B (``ops.conv3x3.dw_conv3x3``) and the
+    flow's inner loop (``flow.tvl1.tvl1_inner_loop``) wrapped to keep copies
+    of the inputs the path hands them: (kernel B's (x, g) pairs, the inner
+    loop's (arrays, (tau, lambda, theta, epsilon, max_iters)) a launch). The
+    solver binds its inner loop when it is built, so the solver cache is
+    cleared around the run."""
+    from frame2frame_tpu_torch.flow import tvl1 as tvl1_mod
+    from frame2frame_tpu_torch.ops import conv3x3 as c3
+
+    seen_b, seen_flow = [], []
+    kernel_b, inner = c3.dw_conv3x3, tvl1_mod.tvl1_inner_loop
+
+    def read_b(x, g):
+        seen_b.append((x.detach().clone(), g.detach().clone()))
+        return kernel_b(x, g)
+
+    def read_inner(*a, **kw):
+        seen_flow.append(([t.clone() for t in a[:10]], a[10:15]))
+        return inner(*a, **kw)
+
+    c3.dw_conv3x3, tvl1_mod.tvl1_inner_loop = read_b, read_inner
+    tvl1_mod._make_solver.cache_clear()
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        c3.dw_conv3x3, tvl1_mod.tvl1_inner_loop = kernel_b, inner
+        tvl1_mod._make_solver.cache_clear()
+    return seen_b, seen_flow
+
+
+def hold_path_kernels(torch, tag, seen_b, seen_flow, terms_scale=False):
+    """Kernel B on each (x, g) within ``CONV_RTOL`` of its plain version, and
+    the inner loop at each launch bit-equal to its plain version
+    (``read_path_kernels``' records). The scale of kernel B's hold is the
+    largest plain value, or with ``terms_scale`` the largest sum of the
+    products' magnitudes that a weight's gradient adds up (the plain version
+    on |x| and |g|): the bound of an f32 sum's rounding in any order, for
+    gradients whose millions of products cancel. Returns the worst relative
+    error of kernel B by shape (against the largest plain value, and
+    against the scale held), and the inner loop's launches and iterations
+    by level."""
+    from frame2frame_tpu_torch.flow import tvl1_inner as ti
+    from frame2frame_tpu_torch.ops import conv_dw as cdw
+
+    b_err, b_held = {}, {}
+    for x, g in seen_b:
+        got, ref = cdw.dw_conv3x3(x, g), cdw.dw_conv3x3_plain(x, g)
+        torch.cuda.synchronize()
+        err, scale = rel_err(got, ref)
+        held = scale
+        if terms_scale:
+            held = float(cdw.dw_conv3x3_plain(x.abs(), g.abs()).max())
+        shape = (f"{tuple(x.shape[:3])} {x.shape[-1]}->{g.shape[-1]} "
+                 f"{str(x.dtype)[6:]}")
+        check(bool(torch.isfinite(got).all()) and err <= CONV_RTOL * held,
+              f"{tag}: kernel B at {shape} off plain by {err} of {held}")
+        b_err[shape] = max(b_err.get(shape, 0.0), err / scale)
+        b_held[shape] = max(b_held.get(shape, 0.0), err / held)
+        del got, ref
+    levels = {}
+    for k, (arrays, (tau, lam, theta, eps, mi)) in enumerate(seen_flow):
+        n, err, _ = hold_inner_loop(
+            torch, ti, f"{tag} flow launch {k}", arrays, mi, epsilon=eps,
+            tau=tau, lambda_=lam, theta=theta)
+        lv = levels.setdefault("x".join(map(str, arrays[0].shape)),
+                               {"launches": 0, "iterations": []})
+        lv["launches"] += 1
+        lv["iterations"].append(n)
+    out = {"kernel_b_rel_err": b_err, "tvl1_inner_levels": levels}
+    if terms_scale:
+        out["kernel_b_err_of_terms"] = b_held
+    return out
+
+
 def adapt_phase(torch, fs, psnr):
     """The adaptation path (``get_loss_fxn(cfg, t)`` -> wrapper -> loss ->
     Adam): the pretrained DnCNN-17 through ``load_model`` on a 7-frame 540p
@@ -3375,11 +3517,7 @@ def adapt_phase(torch, fs, psnr):
     wrappers' launches a window. Returns (launch counts of the fused runs,
     timings and checks)."""
     import frame2frame_tpu_torch as port
-    from frame2frame_tpu_torch.flow import tvl1 as tvl1_mod
-    from frame2frame_tpu_torch.flow import tvl1_inner as ti
     from frame2frame_tpu_torch.flow.api import run_flows
-    from frame2frame_tpu_torch.ops import conv3x3 as c3
-    from frame2frame_tpu_torch.ops import conv_dw as cdw
     from frame2frame_tpu_torch.ops import nls
     from frame2frame_tpu_torch.train import adapt as adapt_mod
     from frame2frame_tpu_torch.utils.timer import cuda_time_ms
@@ -3555,50 +3693,13 @@ def adapt_phase(torch, fs, psnr):
         path hands them over (kernel B: each convolution's x and cotangent;
         the inner loop: every launch of the window's flow, all its pairs in
         one batch); then each kernel against its plain version on them."""
-        seen_b, seen_flow = [], []
-        kernel_b, inner = c3.dw_conv3x3, tvl1_mod.tvl1_inner_loop
-
-        def read_b(x, g):
-            seen_b.append((x.detach().clone(), g.detach().clone()))
-            return kernel_b(x, g)
-
-        def read_inner(*a, **kw):
-            seen_flow.append(([t.clone() for t in a[:10]], a[10:15]))
-            return inner(*a, **kw)
-
-        # the solver binds its inner loop when it is built: a new one reads
-        c3.dw_conv3x3, tvl1_mod.tvl1_inner_loop = read_b, read_inner
-        tvl1_mod._make_solver.cache_clear()
-        try:
-            port.get_loss_fxn(dict(ADAPT_CFG, adapt_nsteps=1), lt)(
-                st, vid_n, vid_c, seed=ADAPT_SEED, sched=sched)
-            torch.cuda.synchronize()
-        finally:
-            c3.dw_conv3x3, tvl1_mod.tvl1_inner_loop = kernel_b, inner
-            tvl1_mod._make_solver.cache_clear()
+        seen_b, seen_flow = read_path_kernels(
+            torch, lambda: port.get_loss_fxn(dict(ADAPT_CFG, adapt_nsteps=1),
+                                             lt)(
+                st, vid_n, vid_c, seed=ADAPT_SEED, sched=sched))
         check(len(seen_b) == 17, f"adapt {lt}: {len(seen_b)} dW calls in a "
               "window, expected 17")
-        b_err = {}
-        for x, g in seen_b:
-            got, ref = cdw.dw_conv3x3(x, g), cdw.dw_conv3x3_plain(x, g)
-            torch.cuda.synchronize()
-            err, scale = rel_err(got, ref)
-            shape = (f"{tuple(x.shape[:3])} {x.shape[-1]}->{g.shape[-1]} "
-                     f"{str(x.dtype)[6:]}")
-            check(bool(torch.isfinite(got).all()) and err <= CONV_RTOL * scale,
-                  f"adapt {lt}: kernel B at {shape} off plain by "
-                  f"{err} of {scale}")
-            b_err[shape] = max(b_err.get(shape, 0.0), err / scale)
-        levels = {}
-        for k, (arrays, (tau, lam, theta, eps, mi)) in enumerate(seen_flow):
-            n, err, _ = hold_inner_loop(
-                torch, ti, f"adapt {lt} flow launch {k}", arrays, mi,
-                epsilon=eps, tau=tau, lambda_=lam, theta=theta)
-            lv = levels.setdefault("x".join(map(str, arrays[0].shape)),
-                                   {"launches": 0, "iterations": []})
-            lv["launches"] += 1
-            lv["iterations"].append(n)
-        held = {"kernel_b_rel_err": b_err, "tvl1_inner_levels": levels}
+        held = hold_path_kernels(torch, f"adapt {lt}", seen_b, seen_flow)
         print(f"adapt {lt} kernels on the path's inputs (kernel B within "
               f"{CONV_RTOL} of plain, the inner loop bit-equal): "
               + json.dumps(held), flush=True)
@@ -3688,6 +3789,366 @@ def adapt_phase(torch, fs, psnr):
     return launches, out
 
 
+def offline_step(torch, batch, conv_impl, device):
+    """One ``TrainModule.training_step`` of ``OFFLINE_CFG`` on ``batch``
+    (flows handed in) with the model on ``conv_impl`` and ``device``:
+    (loss, weights after the update as float64 on the host)."""
+    import frame2frame_tpu_torch as port
+    from frame2frame_tpu_torch.train.lit import TrainModule
+    from frame2frame_tpu_torch.train.schedules import make_optimizer
+    from frame2frame_tpu_torch.train.state import TrainState
+
+    cfg = dict(OFFLINE_CFG, conv_impl=conv_impl, read_flows=True)
+    ms = port.load_model(cfg, device=device)
+    module = TrainModule(cfg, ms.model)
+    tx, _ = make_optimizer(module.cfg, steps_per_epoch=2)
+    st = TrainState.create(ms.model, ms.variables, tx)
+    st, m = module.training_step(st, batch, 0,
+                                 torch.Generator(device).manual_seed(0))
+    return m.train_loss, {n: p.detach().double().cpu()
+                          for n, p in st.model.named_parameters()}
+
+
+def offline_phase(torch, fs):
+    """The offline trainer (``train/trainer.run``): the pretrained DnCNN-17
+    on "fused" over two 5-frame 540p synthetic clips, two epochs of the
+    warped loss on TV-L1 flows solved each step; one step on a 128x128
+    crop on "xla" against the CPU and on "fused" against "xla"; kernel B
+    and the flow's inner loop against their plain versions on the inputs
+    one warm-up step hands them; launches a step, the checkpoint read back,
+    the CSV's rows, host and device ms a step. Returns (launch counts of
+    ``trainer.run``, timings and checks)."""
+    import tempfile
+
+    import frame2frame_tpu_torch as port
+    from frame2frame_tpu_torch.data import sets
+    from frame2frame_tpu_torch.flow.api import run_flows
+    from frame2frame_tpu_torch.models.serialization import load_variables
+    from frame2frame_tpu_torch.train import lit as lit_mod
+    from frame2frame_tpu_torch.train import trainer
+    from frame2frame_tpu_torch.train.schedules import make_optimizer
+    from frame2frame_tpu_torch.train.state import TrainState
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    out = {}
+    data, _ = sets.load(OFFLINE_CFG, device=dev)
+    sample = data.tr[0]
+    clip = {k: sample[k][None] for k in ("noisy", "clean")}
+
+    # (a) one step on a 128x128 crop, flows handed in: "xla" on the card
+    # against the CPU, "fused" against "xla"
+    crop = {k: np.ascontiguousarray(v[(slice(None),) + OFFLINE_CROP])
+            for k, v in clip.items()}
+    flows = run_flows(torch.from_numpy(crop["noisy"]), True, device=dev)
+    crop.update({k: v.cpu().numpy() for k, v in flows.items()})
+    card = offline_step(torch, crop, "xla", dev)
+    cpu = offline_step(torch, crop, "xla", torch.device("cpu"))
+    fused = offline_step(torch, crop, "fused", dev)
+    scale = max(float(w.abs().max()) for w in cpu[1].values())
+    err = torch.cat([(card[1][n] - w).abs().flatten()
+                     for n, w in cpu[1].items()])
+    lr = OFFLINE_CFG["lr_init"]
+    hold = {"loss_card": card[0], "loss_cpu": cpu[0], "loss_fused": fused[0],
+            "loss_rel_err_vs_cpu": abs(card[0] - cpu[0]) / abs(cpu[0]),
+            "fused_vs_xla_rel": abs(fused[0] - card[0]) / abs(card[0]),
+            "weights_max_err_vs_cpu": float(err.max()),
+            "largest_weight": scale,
+            "weights_beyond_share": float(
+                (err > OFFLINE_WEIGHT_RTOL * scale).double().mean())}
+    out["step_128"] = hold
+    print("offline one step 128x128: " + json.dumps(hold), flush=True)
+    check(hold["loss_rel_err_vs_cpu"] <= ADAPT_CPU_RTOL,
+          f"offline: card loss off the CPU's by {hold['loss_rel_err_vs_cpu']}")
+    check(hold["weights_beyond_share"] <= OFFLINE_KINK_SHARE
+          and hold["weights_max_err_vs_cpu"]
+          <= OFFLINE_WEIGHT_RTOL * scale + 2 * lr,
+          f"offline: updated weights off the CPU's: {hold}")
+    check(hold["fused_vs_xla_rel"] <= ADAPT_ROUTE_RTOL,
+          f"offline: fused loss off xla's by {hold['fused_vs_xla_rel']}")
+    del card, cpu, fused
+
+    # (b) one warm-up step at full width: kernel B and the inner loop
+    # against their plain versions on the inputs the step hands them
+    ms = port.load_model(OFFLINE_CFG)
+    module = lit_mod.TrainModule(OFFLINE_CFG, ms.model)
+    tx, _ = make_optimizer(module.cfg, steps_per_epoch=2)
+    st = TrainState.create(ms.model, ms.variables, tx)
+    gen = torch.Generator(dev).manual_seed(0)
+    seen_b, seen_flow = read_path_kernels(
+        torch, lambda: module.training_step(st, clip, 0, gen))
+    check(len(seen_b) == 17, f"offline: {len(seen_b)} dW calls in a step, "
+          "expected 17")
+    check(len(seen_flow) > 0, "offline: the step's flow launched no inner "
+          "loop")
+    held = hold_path_kernels(torch, "offline", seen_b, seen_flow,
+                             terms_scale=True)
+    solve_launches = len(seen_flow)
+    del seen_b, seen_flow
+    torch.cuda.empty_cache()
+    print(f"offline kernels on the path's inputs (kernel B within "
+          f"{CONV_RTOL} of plain, of the products' magnitudes, the inner "
+          "loop bit-equal): "
+          + json.dumps(held), flush=True)
+    out["kernels_held"] = held
+
+    # (c) trainer.run, counted; each step's host ms, ending in a
+    # synchronize (measurement only; the step runs as it is)
+    step_ms, step = [], lit_mod.TrainModule.training_step
+
+    def timed(self, *a, **kw):
+        t0 = time.perf_counter()
+        res = step(self, *a, **kw)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return res
+
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        lit_mod.TrainModule.training_step = timed
+        fs.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            res = trainer.run(dict(OFFLINE_CFG, checkpoint_dir=tmp))
+            torch.cuda.synchronize()
+        finally:
+            lit_mod.TrainModule.training_step = step
+        run_s = time.perf_counter() - t0
+        launches = dict(fs.launch_counts())
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        want = {"dw_conv3x3": 17 * OFFLINE_STEPS,
+                "tvl1_inner_loop": solve_launches * OFFLINE_STEPS}
+        for k, n in launches.items():
+            check(n == want.get(k, 0), f"offline: {k} launched {n} times in "
+                  f"{OFFLINE_STEPS} steps, expected {want.get(k, 0)}")
+        _same_tree(load_variables(res.checkpoint, like=res.state.variables),
+                   res.state.variables, what="offline final checkpoint")
+        with open(Path(tmp) / "offline-metrics.csv") as f:
+            rows = f.read().splitlines()
+        files = sorted(p.name for p in Path(tmp).iterdir())
+    check(len(rows) == 1 + OFFLINE_STEPS, f"offline: CSV rows {rows}")
+    check(files == ["offline-epoch000.msgpack", "offline-epoch001.msgpack",
+                    "offline-final.msgpack", "offline-metrics.csv"],
+          f"offline: files written {files}")
+    check(np.isfinite(res.val_psnr) and np.isfinite(res.train_loss),
+          f"offline: val_psnr {res.val_psnr}, train_loss {res.train_loss}")
+    check(res.state.step == OFFLINE_STEPS, f"offline: {res.state.step} steps")
+
+    # device ms a step: the profiler over steps on the trained state
+    prof = profile_call(torch, lambda: module.training_step(
+        res.state, clip, 1, gen), iters=3)
+    out["trainer"] = {
+        "steps": OFFLINE_STEPS, "run_s": run_s, "host_ms_a_step": step_ms,
+        "median_host_ms": float(np.median(step_ms)),
+        "device_ms_a_step": prof["device_ms"],
+        "profiled": {k: prof[k] for k in (
+            "ms", "busy_share", "device_kernels", "top_kernels")},
+        "peak_gb": peak_gb, "launches": {k: n for k, n in launches.items()
+                                         if n},
+        "tvl1_inner_launches_a_solve": solve_launches,
+        "train_loss": res.train_loss, "val_psnr": res.val_psnr,
+        "final": {k: v for k, v in res.final.items()
+                  if k in ("train_loss", "val_psnr", "val_ssim", "lr")}}
+    print("offline trainer.run: " + json.dumps(out["trainer"]), flush=True)
+    del res, ms, module, st
+    torch.cuda.empty_cache()
+    elapsed = time.perf_counter() - t_phase
+    out["phase_s"] = elapsed
+    print(f"phase time: offline {elapsed:.1f} s", flush=True)
+    return launches, out
+
+
+def write_eval_clip(root):
+    """The evaluation clip: ``EVAL_T`` 540p frames of the mixed synthetic
+    texture moving ``EVAL_SHIFT`` a frame, as PGM files of
+    ``root/evalset/vid00``."""
+    from frame2frame_tpu_torch.data import synthetic_video
+    from frame2frame_tpu_torch.io.image import write_pgm
+
+    vid = synthetic_video(7, EVAL_T, H, W, shift=EVAL_SHIFT, texture="mixed")
+    d = Path(root) / "evalset" / "vid00"
+    d.mkdir(parents=True)
+    for t, frame in enumerate(vid[..., 0]):
+        write_pgm(d / f"{t:03d}.pgm", np.round(frame))
+    return d
+
+
+def interior_mask(size, overlap, r):
+    """(H, W) bool: the pixels deeper than ``r`` inside every ``chunk``
+    tile that holds them (a tile's sides on the frame's border count as
+    deep)."""
+    from frame2frame_tpu_torch.eval.chunks import _tile_starts
+
+    def axis(n):
+        cover, deep = np.zeros(n, int), np.zeros(n, int)
+        length = min(size, n)
+        for a in _tile_starts(n, length, max(int(size * (1 - overlap)), 1)):
+            cover[a:a + length] += 1
+            lo = a + (r if a > 0 else 0)
+            hi = a + length - (r if a + length < n else 0)
+            deep[lo:hi] += 1
+        return cover, deep
+
+    (ch, dh), (cw, dw) = axis(H), axis(W)
+    return np.outer(ch, cw) == np.outer(dh, dw)
+
+
+def eval_phase(torch, fs):
+    """The evaluation pipeline (``eval/test.run``) on a 4-frame 540p PGM
+    clip with the pretrained DnCNN-17 on "fused": the flows solved on the
+    card into .flo sidecars, then read back; the plain run (the served clip
+    bit-equal to ``load_model(cfg).apply``, a gain over noisy), the x8
+    self-ensemble, chunked inference, internal adaptation and the B2U second
+    pass, each with its launches. Returns (launch counts of the runs,
+    timings and checks)."""
+    import tempfile
+
+    import frame2frame_tpu_torch as port
+    from frame2frame_tpu_torch.data import datasets, sets
+    from frame2frame_tpu_torch.eval import test as test_mod
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    out, served, flows_seen = {}, [], []
+    psnrs, read_flows = test_mod.compute_psnrs, datasets.VideoDataset._flows
+
+    def keep_served(clean, deno, div):
+        if len(served) <= len(runs):  # a run's first call: its deno
+            served.append(deno)
+        return psnrs(clean, deno, div=div)
+
+    def keep_flows(self, index, clean):
+        flows_seen.append(read_flows(self, index, clean))
+        return flows_seen[-1]
+
+    # (name, config, launches) of each run; None: held below
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        vdir = write_eval_clip(tmp)
+        base = dict(EVAL_CFG, data_root=tmp)
+        cases = [
+            ("solve_chunks", EVAL_CHUNK),
+            ("plain", {}), ("aug_test", dict(aug_test=True)),
+            ("adapt", dict(internal_adapt_nsteps=1, internal_adapt_nepochs=1)),
+            ("b2u", dict(crit_name="b2u"))]
+        test_mod.compute_psnrs = keep_served
+        datasets.VideoDataset._flows = keep_flows
+        fs.reset_launch_counts()
+        try:
+            for name, kw in cases:
+                before = dict(fs.launch_counts())
+                # the run's MemIt meters read the peak since this reset
+                torch.cuda.reset_peak_memory_stats(dev)
+                t0 = time.perf_counter()
+                res = test_mod.run(dict(base, **kw))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                after = fs.launch_counts()
+                runs.append((name, res, {k: after[k] - before[k]
+                                         for k in after
+                                         if after[k] > before[k]}, wall))
+                if name == "solve_chunks":
+                    sidecars = sorted(p.name for p in
+                                      (vdir / ".flows").iterdir())
+        finally:
+            test_mod.compute_psnrs = psnrs
+            datasets.VideoDataset._flows = read_flows
+        launches = dict(fs.launch_counts())
+        data, _ = sets.load(base, device=dev)
+        noisy = torch.from_numpy(data.te[0].noisy).to(dev)
+    by = {name: (res, n, wall) for name, res, n, wall in runs}
+
+    def mean_psnr(name):
+        return float(np.mean(by[name][0].psnrs[0]))
+
+    summary = {name: {
+        "psnr": mean_psnr(name),
+        "psnr_pp": float(np.mean(res.psnrs_pp[0])),
+        "noisy_psnr": float(np.mean(res.noisy_psnrs[0])),
+        "ssim": float(np.mean(res.ssims[0])),
+        "strred": float(np.mean(res.strred[0])),
+        "launches": n, "wall_s": wall,
+        "timers_s": {k: v[0] for k, v in res.items()
+                     if k.startswith("timer_") and v},
+        "deno_mem_res_gb": res.deno_mem_res[0][0]}
+        for name, (res, n, wall) in by.items()}
+    out["runs"] = summary
+    print("eval runs: " + json.dumps(summary), flush=True)
+
+    # the flows: solved once on the card into 8 sidecars, then read back
+    # with no inner launch, bit for bit; their median against the shift
+    check(sidecars == [f"{d}_{t:05d}.flo" for d in "bf"
+                       for t in range(EVAL_T)],
+          f"eval: sidecars written {sidecars}")
+    check(by["solve_chunks"][1].get("tvl1_inner_loop", 0) > 0,
+          "eval: the first run solved its flows with no inner launch")
+    check(by["plain"][1].get("tvl1_inner_loop", 0) == 0,
+          "eval: the second run launched the inner loop")
+    ff0, bf0 = flows_seen[0]
+    for ff, bf in flows_seen[1:]:
+        check(np.array_equal(ff, ff0) and np.array_equal(bf, bf0),
+              "eval: the flows read back differ from the solved ones")
+    med = np.median(ff0[:-1].reshape(-1, 2), axis=0)
+    out["flow_median"] = med.tolist()
+    print(f"eval flows: {sidecars} solved, then read back; median forward "
+          f"flow {med.tolist()} px", flush=True)
+    check(np.abs(med - [-EVAL_SHIFT[1], -EVAL_SHIFT[0]]).max()
+          <= EVAL_FLOW_TOL, f"eval: median forward flow {med.tolist()}, "
+          f"the clip moves {EVAL_SHIFT} (dy, dx) a frame")
+
+    # the plain run: the served clip bit-equal to load_model(cfg).apply on
+    # the same noisy clip, one batch of 15 fwd_layer launches, a gain
+    names = [name for name, _, _, _ in runs]
+    deno = served[names.index("plain")]
+    res = by["plain"][0]
+    ms = port.load_model(base)
+    ref = ms.apply(noisy / 255.0).clamp(0.0, 1.0) * 255.0
+    check(np.array_equal(deno[0], ref.cpu().numpy()),
+          "eval: the served clip differs from load_model(cfg).apply")
+    check(by["plain"][1] == {"fwd_layer": NMID},
+          f"eval plain: launches {by['plain'][1]}, expected {NMID} fwd_layer")
+    gain = mean_psnr("plain") - summary["plain"]["noisy_psnr"]
+    out["plain_gain_db"] = gain
+    check(gain > MIN_GAIN_DB, f"eval plain: gain {gain} dB over noisy")
+    check(res.timer_deno[0] > 0 and res.deno_mem_res[0][0] > 0,
+          f"eval plain: timer_deno {res.timer_deno}, deno_mem_res "
+          f"{res.deno_mem_res}")
+    check(mean_psnr("aug_test") >= mean_psnr("plain") - EVAL_AUG_TOL,
+          f"eval aug_test: PSNR {mean_psnr('aug_test')} against the plain "
+          f"run's {mean_psnr('plain')}")
+    inner = interior_mask(EVAL_CHUNK["spatial_chunk_size"],
+                          EVAL_CHUNK["spatial_chunk_overlap"], EVAL_CHUNK_R)
+    chunk_err = np.abs(served[names.index("solve_chunks")][0] - deno[0])
+    out["chunks"] = {
+        "psnr_minus_plain_db": mean_psnr("solve_chunks") - mean_psnr("plain"),
+        "interior_share": float(inner.mean()),
+        "interior_max_abs_err": float(chunk_err[:, inner].max()),
+        "edge_max_abs_err": float(chunk_err[:, ~inner].max())}
+    print("eval chunks against plain: " + json.dumps(out["chunks"]),
+          flush=True)
+    check(out["chunks"]["interior_max_abs_err"] <= EVAL_CHUNK_INTERIOR_ATOL,
+          f"eval chunks: the tiles' interior off the plain run: "
+          f"{out['chunks']}")
+    check(by["adapt"][1].get("dw_conv3x3", 0) == 17,
+          f"eval adapt: launches {by['adapt'][1]}, expected one window's 17 "
+          "kernel B")
+    check(by["adapt"][0].timer_adapt[0] > 0, "eval adapt: no adaptation time")
+    check(np.isfinite(by["b2u"][0].psnrs_pp[0]).all()
+          and by["b2u"][1].get("fwd_layer", 0) > 0,
+          f"eval b2u: psnrs_pp {by['b2u'][0].psnrs_pp}, launches "
+          f"{by['b2u'][1]}")
+    for name in names:
+        check(np.isfinite(by[name][0].psnrs[0]).all(),
+              f"eval {name}: PSNR {by[name][0].psnrs}")
+    del ms, ref
+    torch.cuda.empty_cache()
+    elapsed = time.perf_counter() - t_phase
+    out["phase_s"] = elapsed
+    print(f"phase time: eval {elapsed:.1f} s", flush=True)
+    return launches, out
+
+
 def main():
     if not (REPO / "frame2frame_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke: the port's package frame2frame_tpu_torch is not "
@@ -3768,6 +4229,10 @@ def main():
         registry_launches, registry = registry_phase(torch, fs, psnr)
         torch.cuda.empty_cache()
         adapt_launches, adapt = adapt_phase(torch, fs, psnr)
+        torch.cuda.empty_cache()
+        offline_launches, offline = offline_phase(torch, fs)
+        torch.cuda.empty_cache()
+        eval_launches, evaluation = eval_phase(torch, fs)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -3780,24 +4245,28 @@ def main():
     # on the flat route with AsyncFlowSolver; stream_pallas: the loop on
     # the "pallas" route; spatial: the H-split fine-tune and serving;
     # registry: load_model's apply of a "fused" DnCNN; adapt: the
-    # get_loss_fxn wrappers on a "fused" DnCNN), and on no other path
+    # get_loss_fxn wrappers on a "fused" DnCNN; offline: trainer.run on a
+    # "fused" DnCNN; eval: eval.test.run's runs), and on no other path
     ends = ("flat", "flow", "stream")
     fused = ("training",) + ends + ("spatial",)
     conv_paths = tuple(f"conv_{impl}" for impl in CONV_ROUTES)
-    paths = {"fwd_layer": ("serving",) + fused + ("registry",),
+    paths = {"fwd_layer": ("serving",) + fused + ("registry", "eval"),
              "fwd_layer_eval": ("serving", "spatial"),
              "fwd_layer_train": fused, "bwd_layer": fused,
              "first_conv": ends, "last_loss_fwd": ends,
              "last_loss_bwd": ends, "first_dw": ends,
-             "tvl1_inner_loop": ("flow", "stream", "adapt"),
+             "tvl1_inner_loop": ("flow", "stream", "adapt", "offline",
+                                 "eval"),
              "conv3x3_fwd": ("conv_pallas", "stream_pallas"),
-             "dw_conv3x3": conv_paths + ("stream_pallas", "adapt")}
+             "dw_conv3x3": conv_paths + ("stream_pallas", "adapt", "offline",
+                                         "eval")}
     by_path = {"serving": serve_launches, "training": train_launches,
                "flat": flat_launches, "flow": flow_launches,
                "stream": stream_launches["stream"],
                "stream_pallas": stream_launches["stream_pallas"],
                "spatial": spatial_launches, "registry": registry_launches,
-               "adapt": adapt_launches,
+               "adapt": adapt_launches, "offline": offline_launches,
+               "eval": eval_launches,
                **{f"conv_{impl}": conv_launches[impl]
                   for impl in CONV_ROUTES}}
     for name, on in paths.items():
@@ -3829,7 +4298,8 @@ def main():
                       "training": training, "flow": flow,
                       "conv_impl": conv_impl, "streaming": stream,
                       "spatial": spatial, "registry": registry,
-                      "adapt": adapt}))
+                      "adapt": adapt, "offline": offline,
+                      "eval": evaluation}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

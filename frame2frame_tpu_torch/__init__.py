@@ -13,9 +13,11 @@ path, the online fine-tune on the JAX package's routes (the whole-iteration
 flat step, which the engine takes where it is eligible, the per-iteration
 body on ``fused_train_apply``, and the module's own forward for every
 ``conv_impl``), TV-L1 optical flow with the solver that feeds the
-fine-tune, and the loss family with the test-time adaptation path
+fine-tune, the loss family with the test-time adaptation path
 (``get_loss_fxn(cfg)`` -> a wrapper ``(state, noisy, clean) -> (state,
-info)``).
+info)``), and the harness's train-and-test path: datasets and noise
+(``data.sets.load``), offline training (``train.trainer.run``) and
+evaluation (``eval.test.run``).
 
 - models:  the registry (``load_model``, ``extract_model_config``,
            ``load_checkpoint``), DnCNN module with its ``conv_impl`` routes
@@ -49,11 +51,18 @@ info)``).
            ``run_blind_denoising``, the flat step (``flat_step``:
            ``flat_net_loss``, ``run_flat_scan``), the adaptation wrappers
            (``adapt``), ``TrainState`` (``state``), schedules and
-           optimizers (``schedules``)
+           optimizers (``schedules``), the offline training module
+           (``lit``: ``TrainModule``) and loop (``trainer.run``)
+- eval:    the evaluation pipeline (``test.run``, ``measure_bwd``), x8
+           self-ensemble (``aug.test_x8``), overlap-tiled inference
+           (``chunks.chunk``)
 - io:      ``.flo`` files, image readers and writers (numpy; PGM without
            PIL, other formats with PIL on demand), videos as directories of
            frames (``video``)
-- data:    ``run_rand_crop``
+- data:    datasets (``sets.load``, ``VideoDataset``, ``synthetic_video``,
+           ``filter_subseq``, ``slice_sample``, ``pack_raw_bayer``), noise
+           (``noise``: Gaussian, Poisson-Gaussian, multi-scale, JPEG
+           artifacts, Anscombe), ``run_rand_crop``
 - cli:     ``python -m frame2frame_tpu_torch.cli.tvl1flow``,
            ``python -m frame2frame_tpu_torch.cli.blind_denoising``
 - config:  ``Config``, ``optional``, ``extract_pairs``, ``dcat``,
@@ -64,7 +73,7 @@ info)``).
            trace, named regions and memory snapshot (``profiling``)
 """
 
-__version__ = "0.7.0"
+__version__ = "0.8.0"
 
 from . import config
 from .config import Config, cfg_grid, dcat, extract_pairs, optional
