@@ -149,7 +149,10 @@ Phases, any failure exits non-zero:
    windows, host ms, stream ms (CUDA events) and profiled device ms a
    window, peak memory, exactly 17 kernel B and one flow's
    ``tvl1_inner_loop`` launches a window (none for ``sup``), first and last
-   loss, PSNR of the held-out frames before and after;
+   loss, PSNR of the held-out frames before and after, and after the same
+   windows on "xla": the gap within 1.25 times the JAX package's own gap
+   between its bf16 and f32 graphs on the CPU
+   (``ADAPT_JAX_FUSED_PSNR_GAP``);
 14. the offline trainer (``train/trainer.run``, ``offline_phase``): the
    pretrained DnCNN-17 on "fused" over two 5-frame 540p clips of the mixed
    synthetic texture, two epochs of the warped loss on TV-L1 flows solved
@@ -175,7 +178,23 @@ Phases, any failure exits non-zero:
    self-ensemble no more than 0.05 dB below it, the chunked run within
    0.1 dB; internal adaptation (one f2f window, 17 kernel B); the B2U second
    pass (``psnrs_pp``); each run's metrics, launches, timers and wall time;
-16. a JSON line of per-kernel numbers (launches by path: each kernel is
+16. the experiment launchers (``scripts/torch_trte_*``, ``launcher_phase``)
+   in a fresh working directory: the ``trte_dncnn`` train launcher on the
+   grid of ``exps/trte_dncnn/train.cfg`` on "fused" (DnCNN-17, three
+   sigmas, 64x64 clips) through the port's process backend, one worker on
+   cuda:0 running ``launch_train_run``, which reports the worker's pid,
+   card and kernel launches (17 kernel B a step) in its record; no record
+   holds an error; each worker's ``val_psnr`` within 1e-3 dB of the same
+   config run in process, whose kernel B inputs are held against the plain
+   version; a second call skips every config and launches nothing; the
+   ``trte_dncnn`` test launcher in process (``fwd_layer`` held on its
+   inputs); the ``trte_net`` pair (FastDVDnet);
+17. ``load_model`` with ``model_dtype="bfloat16"`` on "pallas"
+   (``model_dtype_phase``): the pretrained DnCNN-17 serves a 540p frame and
+   takes one training forward and backward on a 128x128 crop (50 kernel A,
+   17 kernel B), the kernels held on those inputs, the bf16 output on the
+   crop against the CPU's at the bf16 graph's bound;
+18. a JSON line of per-kernel numbers (launches by path: each kernel is
    launched on every path it belongs to and on no other), then the card
    line, then the result line ``{"ok": true, "device": {...}}``.
 
@@ -387,6 +406,12 @@ ADAPT_JAX_BF16_GRAD_REL = {
     "f2f": {"conv": 0.3906, "bn_scale": 0.4029, "bn_bias": 0.5828},
     "stnls": {"conv": 0.2770, "bn_scale": 0.2593, "bn_bias": 0.4006},
     "sup": {"conv": 0.3770, "bn_scale": 0.3624, "bn_bias": 0.5742}}
+# the held-out PSNR after adapting on "fused" against "xla" (the same
+# windows): the JAX package's own gap between its bf16 and f32 graphs (dB),
+# measured on the CPU by scripts/torch_adapt_fused_psnr_gap.py (the port's
+# own there: 0.02881, 0.12550, 0.11050); the card's gap is held to
+# BF16_GRAPH_RATIO times it
+ADAPT_JAX_FUSED_PSNR_GAP = {"f2f": 0.03096, "stnls": 0.12734, "sup": 0.10367}
 # the parameter kinds of a DnCNN by name: the convolutions' weights, the
 # BatchNorm scales, the BatchNorm biases
 GRAD_KINDS = {
@@ -433,6 +458,11 @@ EVAL_AUG_TOL = 0.05  # dB below the plain run at most
 EVAL_CHUNK = dict(spatial_chunk_size=256, spatial_chunk_overlap=0.1)
 EVAL_CHUNK_R = 17
 EVAL_CHUNK_INTERIOR_ATOL = 1e-3
+# the launchers (launcher_phase): a dispatched config's val_psnr against
+# the same config run in process
+LAUNCH_PSNR_DB = 1e-3
+# model_dtype="bfloat16" (model_dtype_phase): the frame's seed
+DTYPE_SEED = 31
 EVAL_CFG = dict(
     net_name="dncnn", channels=1, num_of_layers=17, residual=True,
     conv_impl="fused", pretrained_load=True, pretrained_path=str(CKPT),
@@ -3433,68 +3463,111 @@ def grad_distance(got, ref):
 
 
 def read_path_kernels(torch, run):
-    """Run ``run()`` with kernel B (``ops.conv3x3.dw_conv3x3``) and the
-    flow's inner loop (``flow.tvl1.tvl1_inner_loop``) wrapped to keep copies
-    of the inputs the path hands them: (kernel B's (x, g) pairs, the inner
-    loop's (arrays, (tau, lambda, theta, epsilon, max_iters)) a launch). The
-    solver binds its inner loop when it is built, so the solver cache is
-    cleared around the run."""
+    """Run ``run()`` with kernel B (``ops.conv3x3.dw_conv3x3``), kernel A
+    (``ops.conv3x3.conv3x3_fwd``), the eval mid layer
+    (``models.fused_apply.fwd_layer``) and the flow's inner loop
+    (``flow.tvl1.tvl1_inner_loop``) wrapped to keep copies of the inputs
+    the path hands them: ``{"b": [(x, g)], "a": [(x, w)], "fwd": [(z_prev,
+    w, s, b)], "flow": [(arrays, (tau, lambda, theta, epsilon,
+    max_iters))]}``, one entry a launch. The solver binds its inner loop
+    when it is built, so the solver cache is cleared around the run."""
     from frame2frame_tpu_torch.flow import tvl1 as tvl1_mod
+    from frame2frame_tpu_torch.models import fused_apply as fa
     from frame2frame_tpu_torch.ops import conv3x3 as c3
 
-    seen_b, seen_flow = [], []
-    kernel_b, inner = c3.dw_conv3x3, tvl1_mod.tvl1_inner_loop
+    seen = {"b": [], "a": [], "fwd": [], "flow": []}
+    kernel_b, kernel_a = c3.dw_conv3x3, c3.conv3x3_fwd
+    fwd, inner = fa.fwd_layer, tvl1_mod.tvl1_inner_loop
 
-    def read_b(x, g):
-        seen_b.append((x.detach().clone(), g.detach().clone()))
-        return kernel_b(x, g)
+    class Reader:
+        """Stands in for a kernel and keeps copies of its inputs. Its
+        ``launches`` is the kernel's own, so a kernel that counts itself
+        through its module global (kernel A: ``conv3x3_fwd.launches``)
+        still counts on itself while a reader stands in that global."""
+
+        def __init__(self, key, fn):
+            self.key, self.fn = key, fn
+
+        def __call__(self, *a):
+            seen[self.key].append(tuple(t.detach().clone() for t in a))
+            return self.fn(*a)
+
+        launches = property(lambda self: self.fn.launches,
+                            lambda self, n: setattr(self.fn, "launches", n))
 
     def read_inner(*a, **kw):
-        seen_flow.append(([t.clone() for t in a[:10]], a[10:15]))
+        seen["flow"].append(([t.clone() for t in a[:10]], a[10:15]))
         return inner(*a, **kw)
 
-    c3.dw_conv3x3, tvl1_mod.tvl1_inner_loop = read_b, read_inner
+    c3.dw_conv3x3, c3.conv3x3_fwd = Reader("b", kernel_b), Reader("a",
+                                                                  kernel_a)
+    fa.fwd_layer, tvl1_mod.tvl1_inner_loop = Reader("fwd", fwd), read_inner
     tvl1_mod._make_solver.cache_clear()
     try:
         run()
         torch.cuda.synchronize()
     finally:
-        c3.dw_conv3x3, tvl1_mod.tvl1_inner_loop = kernel_b, inner
+        c3.dw_conv3x3, c3.conv3x3_fwd = kernel_b, kernel_a
+        fa.fwd_layer, tvl1_mod.tvl1_inner_loop = fwd, inner
         tvl1_mod._make_solver.cache_clear()
-    return seen_b, seen_flow
+    return seen
 
 
-def hold_path_kernels(torch, tag, seen_b, seen_flow, terms_scale=False):
-    """Kernel B on each (x, g) within ``CONV_RTOL`` of its plain version, and
-    the inner loop at each launch bit-equal to its plain version
-    (``read_path_kernels``' records). The scale of kernel B's hold is the
-    largest plain value, or with ``terms_scale`` the largest sum of the
-    products' magnitudes that a weight's gradient adds up (the plain version
-    on |x| and |g|): the bound of an f32 sum's rounding in any order, for
-    gradients whose millions of products cancel. Returns the worst relative
-    error of kernel B by shape (against the largest plain value, and
-    against the scale held), and the inner loop's launches and iterations
-    by level."""
+def hold_path_kernels(torch, tag, seen, terms_scale=False):
+    """Each kernel against its plain version on the inputs the path handed
+    it (``read_path_kernels``' records): kernels A and B within
+    ``CONV_RTOL``, ``fwd_layer`` within ``KERNEL_RTOL`` of the largest plain
+    value, the inner loop at each launch bit-equal. The scale of kernel B's
+    hold is the largest plain value, or with ``terms_scale`` the largest
+    sum of the products' magnitudes that a weight's gradient adds up (the
+    plain version on |x| and |g|): the bound of an f32 sum's rounding in
+    any order, for gradients whose millions of products cancel. Returns the
+    worst relative error of each kernel by shape (for kernel B against the
+    largest plain value, and against the scale held), and the inner loop's
+    launches and iterations by level."""
     from frame2frame_tpu_torch.flow import tvl1_inner as ti
+    from frame2frame_tpu_torch.ops import conv3x3 as c3
     from frame2frame_tpu_torch.ops import conv_dw as cdw
+    from frame2frame_tpu_torch.ops import fused_stack as fs
+
+    def shape_of(x, cout):
+        return (f"{tuple(x.shape[:3])} {x.shape[-1]}->{cout} "
+                f"{str(x.dtype)[6:]}")
 
     b_err, b_held = {}, {}
-    for x, g in seen_b:
+    for x, g in seen["b"]:
         got, ref = cdw.dw_conv3x3(x, g), cdw.dw_conv3x3_plain(x, g)
         torch.cuda.synchronize()
         err, scale = rel_err(got, ref)
         held = scale
         if terms_scale:
             held = float(cdw.dw_conv3x3_plain(x.abs(), g.abs()).max())
-        shape = (f"{tuple(x.shape[:3])} {x.shape[-1]}->{g.shape[-1]} "
-                 f"{str(x.dtype)[6:]}")
+        shape = shape_of(x, g.shape[-1])
         check(bool(torch.isfinite(got).all()) and err <= CONV_RTOL * held,
               f"{tag}: kernel B at {shape} off plain by {err} of {held}")
         b_err[shape] = max(b_err.get(shape, 0.0), err / scale)
         b_held[shape] = max(b_held.get(shape, 0.0), err / held)
         del got, ref
+    a_err = {}
+    for x, w in seen["a"]:
+        got, ref = c3.conv3x3_fwd(x, w), c3.conv3x3_fwd_plain(x, w)
+        err, scale = rel_err(got, ref)
+        shape = shape_of(x, w.shape[-1])
+        check(bool(torch.isfinite(got).all()) and err <= CONV_RTOL * scale,
+              f"{tag}: kernel A at {shape} off plain by {err} of {scale}")
+        a_err[shape] = max(a_err.get(shape, 0.0), err / scale)
+        del got, ref
+    fwd_err = {}
+    for z, w, s, b in seen["fwd"]:
+        got, ref = fs.fwd_layer(z, w, s, b), fs.fwd_layer_plain(z, w, s, b)
+        err, scale = rel_err(got, ref)
+        shape = shape_of(z, w.shape[-1])
+        check(bool(torch.isfinite(got).all()) and err <= KERNEL_RTOL * scale,
+              f"{tag}: fwd_layer at {shape} off plain by {err} of {scale}")
+        fwd_err[shape] = max(fwd_err.get(shape, 0.0), err / scale)
+        del got, ref
     levels = {}
-    for k, (arrays, (tau, lam, theta, eps, mi)) in enumerate(seen_flow):
+    for k, (arrays, (tau, lam, theta, eps, mi)) in enumerate(seen["flow"]):
         n, err, _ = hold_inner_loop(
             torch, ti, f"{tag} flow launch {k}", arrays, mi, epsilon=eps,
             tau=tau, lambda_=lam, theta=theta)
@@ -3505,6 +3578,10 @@ def hold_path_kernels(torch, tag, seen_b, seen_flow, terms_scale=False):
     out = {"kernel_b_rel_err": b_err, "tvl1_inner_levels": levels}
     if terms_scale:
         out["kernel_b_err_of_terms"] = b_held
+    if a_err:
+        out["kernel_a_rel_err"] = a_err
+    if fwd_err:
+        out["fwd_layer_rel_err"] = fwd_err
     return out
 
 
@@ -3693,13 +3770,14 @@ def adapt_phase(torch, fs, psnr):
         path hands them over (kernel B: each convolution's x and cotangent;
         the inner loop: every launch of the window's flow, all its pairs in
         one batch); then each kernel against its plain version on them."""
-        seen_b, seen_flow = read_path_kernels(
+        seen = read_path_kernels(
             torch, lambda: port.get_loss_fxn(dict(ADAPT_CFG, adapt_nsteps=1),
                                              lt)(
                 st, vid_n, vid_c, seed=ADAPT_SEED, sched=sched))
-        check(len(seen_b) == 17, f"adapt {lt}: {len(seen_b)} dW calls in a "
-              "window, expected 17")
-        held = hold_path_kernels(torch, f"adapt {lt}", seen_b, seen_flow)
+        seen_flow = seen["flow"]
+        check(len(seen["b"]) == 17, f"adapt {lt}: {len(seen['b'])} dW calls "
+              "in a window, expected 17")
+        held = hold_path_kernels(torch, f"adapt {lt}", seen)
         print(f"adapt {lt} kernels on the path's inputs (kernel B within "
               f"{CONV_RTOL} of plain, the inner loop bit-equal): "
               + json.dumps(held), flush=True)
@@ -3760,6 +3838,21 @@ def adapt_phase(torch, fs, psnr):
         check(len(info.loss) == nwin and np.isfinite(info.loss).all(),
               f"adapt {lt}: losses {info.loss}")
         check(np.isfinite(psnr_after).all(), f"adapt {lt}: PSNR {psnr_after}")
+        # the same windows on the f32 graph ("xla"): the held-out PSNR after
+        # adapting on "fused" within BF16_GRAPH_RATIO times the JAX
+        # package's own gap between its bf16 and f32 graphs
+        st_x, sched_x = adapt_state("xla", nwin=nwin)
+        st_x, _ = wrapper(st_x, vid_n, vid_c, seed=ADAPT_SEED, sched=sched_x)
+        psnr_xla = [psnr(held_c[k], st_x.eval_apply(held_n[k:k + 1])[0])
+                    for k in range(ADAPT_HELD)]
+        del st_x
+        gap = abs(float(np.mean(psnr_after)) - float(np.mean(psnr_xla)))
+        gap_bound = BF16_GRAPH_RATIO * ADAPT_JAX_FUSED_PSNR_GAP[lt]
+        print(f"adapt {lt} held-out PSNR after adapting: fused {psnr_after}, "
+              f"xla {psnr_xla}, gap {gap:.4f} dB (bound {gap_bound:.4f})",
+              flush=True)
+        check(gap <= gap_bound, f"adapt {lt}: held-out PSNR after adapting "
+              f"on fused {gap} dB off xla's, more than {gap_bound}")
         one = dict(ADAPT_CFG, adapt_nsteps=1)
         prof = profile_call(torch, lambda: port.get_loss_fxn(one, lt)(
             st, vid_n, vid_c, seed=ADAPT_SEED, sched=sched), iters=3)
@@ -3778,7 +3871,10 @@ def adapt_phase(torch, fs, psnr):
             "tvl1_inner_launches": counts["tvl1_inner_loop"],
             "first_loss": info.loss[0], "last_loss": info.loss[-1],
             "lr": info.lr, "psnr_held_before": psnr_before,
-            "psnr_held_after": psnr_after, "kernels_held": held}
+            "psnr_held_after": psnr_after, "psnr_held_after_xla": psnr_xla,
+            "fused_vs_xla_psnr_gap_db": gap,
+            "jax_fused_vs_xla_psnr_gap_db": ADAPT_JAX_FUSED_PSNR_GAP[lt],
+            "kernels_held": held}
         print(f"adapt {lt}: " + json.dumps(out[lt]), flush=True)
         del st
         torch.cuda.empty_cache()
@@ -3875,16 +3971,15 @@ def offline_phase(torch, fs):
     tx, _ = make_optimizer(module.cfg, steps_per_epoch=2)
     st = TrainState.create(ms.model, ms.variables, tx)
     gen = torch.Generator(dev).manual_seed(0)
-    seen_b, seen_flow = read_path_kernels(
+    seen = read_path_kernels(
         torch, lambda: module.training_step(st, clip, 0, gen))
-    check(len(seen_b) == 17, f"offline: {len(seen_b)} dW calls in a step, "
-          "expected 17")
-    check(len(seen_flow) > 0, "offline: the step's flow launched no inner "
-          "loop")
-    held = hold_path_kernels(torch, "offline", seen_b, seen_flow,
-                             terms_scale=True)
-    solve_launches = len(seen_flow)
-    del seen_b, seen_flow
+    check(len(seen["b"]) == 17, f"offline: {len(seen['b'])} dW calls in a "
+          "step, expected 17")
+    check(len(seen["flow"]) > 0, "offline: the step's flow launched no "
+          "inner loop")
+    held = hold_path_kernels(torch, "offline", seen, terms_scale=True)
+    solve_launches = len(seen["flow"])
+    del seen
     torch.cuda.empty_cache()
     print(f"offline kernels on the path's inputs (kernel B within "
           f"{CONV_RTOL} of plain, of the products' magnitudes, the inner "
@@ -4149,6 +4244,291 @@ def eval_phase(torch, fs):
     return launches, out
 
 
+def launch_train_run(cfg, device=None):
+    """The run function ``launcher_phase`` dispatches (``fn_spec`` names it
+    ``<path>/chip_smoke.py::launch_train_run``): ``trainer.run`` in the
+    worker, with the worker's pid, device, card and kernel launch counts
+    added to its results, since the counters live in the worker."""
+    import os
+
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    from frame2frame_tpu_torch.ops import fused_stack as fs
+    from frame2frame_tpu_torch.train import trainer
+
+    fs.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = trainer.run(cfg, device=device)
+    torch.cuda.synchronize()
+    dev = torch.device(device or "cuda")
+    out["worker"] = {"pid": os.getpid(), "device": str(dev),
+                     "run_s": time.perf_counter() - t0,
+                     "card": torch.cuda.get_device_name(dev),
+                     "launches": fs.launch_counts()}
+    return out
+
+
+def launcher_script(rel):
+    """A launcher under ``scripts/`` loaded as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "launcher_" + rel.replace("/", "_")[:-3], REPO / "scripts" / rel)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def launcher_phase(torch, fs):
+    """The experiment launchers (``scripts/torch_trte_*``) through the
+    port's cache and dispatch backends, in a fresh working directory: the
+    ``trte_dncnn`` train launcher on the grid of
+    ``exps/trte_dncnn/train.cfg`` on "fused" (DnCNN-17, three sigmas, the
+    config's 64x64 clips, TV-L1 flows on each step's pairs) through the
+    process backend, one worker on cuda:0; each worker's record against an in-process run of its config;
+    a second call on the same cache, which must skip every config; the
+    ``trte_dncnn`` test launcher on "fused" in process; the ``trte_net``
+    pair (FastDVDnet) in process. Returns (launch counts of the launchers:
+    the workers' own counts, reported in their records, and the in-process
+    launchers', timings and checks)."""
+    import os
+    import tempfile
+
+    from frame2frame_tpu_torch import cache
+    from frame2frame_tpu_torch.train import trainer
+
+    t_phase = time.perf_counter()
+    train_l = launcher_script("torch_trte_dncnn/train.py")
+    test_l = launcher_script("torch_trte_dncnn/test.py")
+    net_train = launcher_script("torch_trte_net/train.py")
+    net_test = launcher_script("torch_trte_net/test.py")
+    launches = {k: 0 for k in fs.launch_counts()}
+    out, cwd = {}, os.getcwd()
+    with tempfile.TemporaryDirectory() as td:
+        td = Path(td)
+        cfgs = {}
+        for name in ("train", "test"):
+            spec = json.loads((REPO / "exps" / "trte_dncnn"
+                               / f"{name}.cfg").read_text())
+            spec["base"]["conv_impl"] = "fused"
+            cfgs[name] = td / f"dncnn_{name}.cfg"
+            cfgs[name].write_text(json.dumps(spec))
+        os.chdir(td)
+        try:
+            # (a) the train launcher through the process backend
+            fs.reset_launch_counts()
+            t0 = time.perf_counter()
+            recs = train_l.main(enable_dispatch="process", device="cuda:0",
+                                cfg_path=cfgs["train"],
+                                run_fn=launch_train_run)
+            train_s = time.perf_counter() - t0
+            parent = fs.launch_counts()
+            check(not any(parent.values()), "launcher: the dispatching "
+                  f"process launched kernels itself: {parent}")
+            pids = set()
+            for rec in recs:
+                res = rec["results"]
+                check("error" not in res, f"launcher: config {rec['uuid']} "
+                      f"failed in its worker: {res.get('error')}")
+                w = res["worker"]
+                check(w["pid"] != os.getpid() and w["pid"] not in pids
+                      and w["device"] == "cuda:0"
+                      and w["card"] == torch.cuda.get_device_name(0),
+                      f"launcher: worker {w} of {rec['uuid']}")
+                pids.add(w["pid"])
+                check(np.isfinite(res["val_psnr"]), f"launcher: val_psnr "
+                      f"{res['val_psnr']}")
+                for k, n in w["launches"].items():
+                    launches[k] += n
+            steps = 2 * 2  # 2 videos x 2 epochs at batch size 1
+            check(all(r["results"]["worker"]["launches"]["dw_conv3x3"]
+                      == 17 * steps for r in recs),
+                  "launcher: kernel B launches a worker "
+                  f"{[r['results']['worker']['launches'] for r in recs]}")
+            # (b) a second call on the same cache: every config skipped,
+            # no worker, no launch
+            fs.reset_launch_counts()
+            t0 = time.perf_counter()
+            again = train_l.main(enable_dispatch="process", device="cuda:0",
+                                 cfg_path=cfgs["train"],
+                                 run_fn=launch_train_run)
+            rerun_s = time.perf_counter() - t0
+            check(not any(fs.launch_counts().values())
+                  and [r["results"]["worker"]["pid"] for r in again]
+                  == [r["results"]["worker"]["pid"] for r in recs],
+                  "launcher: the second call ran configs again")
+            # (c) the test launcher in process ("fused": load_model's apply
+            # on fwd_layer), its kernels read on the way
+            fs.reset_launch_counts()
+            t0 = time.perf_counter()
+            te = {}
+            seen = read_path_kernels(torch, lambda: te.setdefault(
+                "recs", test_l.main(device="cuda", cfg_path=cfgs["test"])))
+            test_s = time.perf_counter() - t0
+            counts = fs.launch_counts()
+            for k, n in counts.items():
+                launches[k] += n
+            check(counts["fwd_layer"] > 0 and counts["fwd_layer"] % 15 == 0
+                  and not seen["b"],
+                  f"launcher: the test launcher launched {counts}")
+            psnr_te = []
+            for rec in te["recs"]:
+                check("error" not in rec["results"], "launcher: test config "
+                      f"{rec['uuid']} failed: {rec['results'].get('error')}")
+                psnr_te.append(float(np.mean(rec["results"]["psnrs"])))
+            check(np.isfinite(psnr_te).all(), f"launcher: PSNR {psnr_te}")
+            held = hold_path_kernels(torch, "launcher test", seen)
+            del seen
+            # (d) the FastDVDnet pair in process (no kernel of the port)
+            fs.reset_launch_counts()
+            t0 = time.perf_counter()
+            net_tr = net_train.main(device="cuda")
+            net_te = net_test.main(device="cuda")
+            net_s = time.perf_counter() - t0
+            counts = fs.launch_counts()
+            for k, n in counts.items():
+                launches[k] += n
+            for rec in net_tr + net_te:
+                check("error" not in rec["results"], "launcher: FastDVDnet "
+                      f"config {rec['uuid']} failed: "
+                      f"{rec['results'].get('error')}")
+            net_psnr = [r["results"]["val_psnr"] for r in net_tr] + [
+                float(np.mean(r["results"]["psnrs"])) for r in net_te]
+            check(np.isfinite(net_psnr).all(), f"launcher: FastDVDnet "
+                  f"val_psnr and test PSNR {net_psnr}")
+            # (e) each worker's record against an in-process run of its
+            # config, kernel B held on the inputs of the first
+            exps, uuids = cache.train_stages.run(cfgs["train"])
+            inproc, seen = [], None
+            t0 = time.perf_counter()
+            for k, (cfg, uuid) in enumerate(zip(exps, uuids)):
+                cfg = dict(cfg, uuid=uuid,
+                           checkpoint_dir=str(td / "inproc"))
+                if k == 0:
+                    res = {}
+                    seen = read_path_kernels(torch, lambda: res.setdefault(
+                        "r", trainer.run(cfg)))
+                    res = res["r"]
+                else:
+                    res = trainer.run(cfg)
+                inproc.append(float(res["val_psnr"]))
+            inproc_s = time.perf_counter() - t0
+            worker_psnr = [float(r["results"]["val_psnr"]) for r in recs]
+            diff = max(abs(a - b) for a, b in zip(worker_psnr, inproc))
+            check(diff <= LAUNCH_PSNR_DB, f"launcher: worker val_psnr "
+                  f"{worker_psnr} off in-process {inproc} by {diff} dB")
+            check(len(seen["b"]) == 17 * steps, f"launcher: {len(seen['b'])} "
+                  "dW calls in a config's run")
+            held.update(hold_path_kernels(torch, "launcher train", seen,
+                                          terms_scale=True))
+            del seen
+        finally:
+            os.chdir(cwd)
+    torch.cuda.empty_cache()
+    run_s = [r["results"]["worker"]["run_s"] for r in recs]
+    out = {"train_configs": len(recs), "steps_a_config": steps,
+           "train_process_s": train_s,
+           "train_s_a_config": train_s / len(recs),
+           "worker_run_s": run_s,
+           # a worker's interpreter, imports, context and kernel libraries
+           "worker_startup_s": (train_s - sum(run_s)) / len(recs),
+           "in_process_s_a_config": inproc_s / len(recs),
+           "rerun_s": rerun_s, "test_s": test_s, "fastdvdnet_pair_s": net_s,
+           "worker_pids": sorted(pids), "val_psnr_workers": worker_psnr,
+           "val_psnr_in_process": inproc, "val_psnr_max_diff_db": diff,
+           "test_psnr": psnr_te, "fastdvdnet_psnr": net_psnr,
+           "launches": {k: n for k, n in launches.items() if n},
+           "kernels_held": held}
+    elapsed = time.perf_counter() - t_phase
+    out["phase_s"] = elapsed
+    print("launcher: " + json.dumps(out), flush=True)
+    print(f"phase time: launcher {elapsed:.1f} s", flush=True)
+    return launches, out
+
+
+def model_dtype_phase(torch, fs, psnr):
+    """``load_model`` with ``model_dtype="bfloat16"`` on the "pallas" route
+    (bf16 activations, f32 parameters; kernels A and B on f32 operands): the
+    pretrained DnCNN-17 serves a 540p frame and takes one training forward
+    and backward on a 128x128 crop, counted; kernels A and B held against
+    their plain versions on the inputs that run gave them; the bf16 output
+    on a crop against the CPU's at the bf16 graph's bound. Returns (launch
+    counts, checks)."""
+    import frame2frame_tpu_torch as port
+
+    t_phase = time.perf_counter()
+    cfg = dict(net_name="dncnn", channels=1, num_of_layers=17, residual=True,
+               conv_impl="pallas", model_dtype="bfloat16",
+               pretrained_load=True, pretrained_path=str(CKPT))
+    clean, noisy, _ = moving_frames(1, seed=DTYPE_SEED)
+    crop = noisy[:, 200:328, 300:428]
+    card = port.load_model(cfg)
+    check(card.model.dtype == torch.bfloat16 and all(
+        p.dtype == torch.float32 for p in card.model.parameters()),
+        "model_dtype: not bf16 activations on f32 parameters")
+    got = {}
+
+    def drive():
+        got["served"] = card.apply(noisy)
+        y, _ = card.apply(crop, train=True)
+        (y.float() ** 2).mean().backward()
+
+    fs.reset_launch_counts()
+    seen = read_path_kernels(torch, drive)
+    launches = fs.launch_counts()
+    want = {"conv3x3_fwd": 17 + 17 + 16, "dw_conv3x3": 17}
+    for k, n in launches.items():
+        check(n == want.get(k, 0), f"model_dtype: {k} launched {n} times, "
+              f"expected {want.get(k, 0)}")
+    # the activations the card computed are bf16: every kernel-A input
+    # but a forward's 1-channel input image (the 64-channel activations of
+    # both forwards and the backward's dX operands) holds bf16 values,
+    # which an f32 activation would not
+    wide = [x for x, _ in seen["a"] if x.shape[-1] > 1]
+    bf16_inputs = sum(bool((x == x.to(torch.bfloat16).float()).all())
+                      for x in wide)
+    check(len(wide) == 16 + 16 + 15 and bf16_inputs == len(wide),
+          f"model_dtype: {bf16_inputs} of {len(wide)} wide kernel A inputs "
+          "hold bf16 values")
+    held = hold_path_kernels(torch, "model_dtype", seen, terms_scale=True)
+    del seen, wide
+    served = got["served"]
+    check(served.dtype == torch.float32 and bool(
+        torch.isfinite(served).all()), "model_dtype: served frame")
+    gain = psnr(clean[0], served[0]) - psnr(clean[0], noisy[0])
+    # the bf16 output on the crop: the card's distance from the CPU's f32
+    # model at most BF16_GRAPH_RATIO times the CPU's bf16 model's, or one
+    # bf16 ulp (tests/test_torch_bf16_graph.py)
+    out_card = card.apply(crop).double().cpu()
+    out_cpu = port.load_model(cfg, device="cpu").apply(crop).double()
+    out_f32 = port.load_model(dict(cfg, model_dtype="float32"),
+                              device="cpu").apply(crop).double()
+    d_card = float((out_card - out_f32).abs().max())
+    d_cpu = float((out_cpu - out_f32).abs().max())
+    ulp = 2.0 ** (np.floor(np.log2(float(out_f32.abs().max()))) - 7)
+    bound = max(BF16_GRAPH_RATIO * d_cpu, ulp)
+    out = {"launches": {k: n for k, n in launches.items() if n},
+           "served_gain_db": gain, "card_vs_cpu_f32": d_card,
+           "cpu_bf16_vs_cpu_f32": d_cpu, "bound": bound,
+           "card_vs_cpu_bf16": float((out_card - out_cpu).abs().max()),
+           "mean_abs": {
+               "card_vs_cpu_f32": float((out_card - out_f32).abs().mean()),
+               "cpu_bf16_vs_cpu_f32": float((out_cpu - out_f32).abs()
+                                            .mean()),
+               "card_vs_cpu_bf16": float((out_card - out_cpu).abs().mean())},
+           "bf16_kernel_a_inputs": bf16_inputs,
+           "kernels_held": held}
+    check(d_card <= bound, f"model_dtype: the card's bf16 output {d_card} "
+          f"off the CPU's f32, more than {bound}")
+    check(gain > MIN_GAIN_DB, f"model_dtype: gain {gain} dB")
+    elapsed = time.perf_counter() - t_phase
+    out["phase_s"] = elapsed
+    print("model_dtype: " + json.dumps(out), flush=True)
+    print(f"phase time: model_dtype {elapsed:.1f} s", flush=True)
+    return launches, out
+
+
 def main():
     if not (REPO / "frame2frame_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke: the port's package frame2frame_tpu_torch is not "
@@ -4233,6 +4613,10 @@ def main():
         offline_launches, offline = offline_phase(torch, fs)
         torch.cuda.empty_cache()
         eval_launches, evaluation = eval_phase(torch, fs)
+        torch.cuda.empty_cache()
+        launch_launches, launcher = launcher_phase(torch, fs)
+        torch.cuda.empty_cache()
+        dtype_launches, dtype_out = model_dtype_phase(torch, fs, psnr)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -4246,27 +4630,31 @@ def main():
     # the "pallas" route; spatial: the H-split fine-tune and serving;
     # registry: load_model's apply of a "fused" DnCNN; adapt: the
     # get_loss_fxn wrappers on a "fused" DnCNN; offline: trainer.run on a
-    # "fused" DnCNN; eval: eval.test.run's runs), and on no other path
+    # "fused" DnCNN; eval: eval.test.run's runs; launch: the launchers,
+    # the dispatched workers' own counts included; model_dtype: load_model
+    # with model_dtype="bfloat16" on "pallas"), and on no other path
     ends = ("flat", "flow", "stream")
     fused = ("training",) + ends + ("spatial",)
     conv_paths = tuple(f"conv_{impl}" for impl in CONV_ROUTES)
-    paths = {"fwd_layer": ("serving",) + fused + ("registry", "eval"),
+    paths = {"fwd_layer": ("serving",) + fused + ("registry", "eval",
+                                                 "launch"),
              "fwd_layer_eval": ("serving", "spatial"),
              "fwd_layer_train": fused, "bwd_layer": fused,
              "first_conv": ends, "last_loss_fwd": ends,
              "last_loss_bwd": ends, "first_dw": ends,
              "tvl1_inner_loop": ("flow", "stream", "adapt", "offline",
-                                 "eval"),
-             "conv3x3_fwd": ("conv_pallas", "stream_pallas"),
+                                 "eval", "launch"),
+             "conv3x3_fwd": ("conv_pallas", "stream_pallas", "model_dtype"),
              "dw_conv3x3": conv_paths + ("stream_pallas", "adapt", "offline",
-                                         "eval")}
+                                         "eval", "launch", "model_dtype")}
     by_path = {"serving": serve_launches, "training": train_launches,
                "flat": flat_launches, "flow": flow_launches,
                "stream": stream_launches["stream"],
                "stream_pallas": stream_launches["stream_pallas"],
                "spatial": spatial_launches, "registry": registry_launches,
                "adapt": adapt_launches, "offline": offline_launches,
-               "eval": eval_launches,
+               "eval": eval_launches, "launch": launch_launches,
+               "model_dtype": dtype_launches,
                **{f"conv_{impl}": conv_launches[impl]
                   for impl in CONV_ROUTES}}
     for name, on in paths.items():
@@ -4299,7 +4687,8 @@ def main():
                       "conv_impl": conv_impl, "streaming": stream,
                       "spatial": spatial, "registry": registry,
                       "adapt": adapt, "offline": offline,
-                      "eval": evaluation}))
+                      "eval": evaluation, "launcher": launcher,
+                      "model_dtype": dtype_out}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -63,6 +63,9 @@ evaluation (``eval.test.run``).
            ``filter_subseq``, ``slice_sample``, ``pack_raw_bayer``), noise
            (``noise``: Gaussian, Poisson-Gaussian, multi-scale, JPEG
            artifacts, Anscombe), ``run_rand_crop``
+- cache:   sweeps of configs (``run_exps``, ``load_edata``,
+           ``train_stages``): the JAX package's uuid and cache layout,
+           skip-done, and the process / slurm dispatch (``dispatch``)
 - cli:     ``python -m frame2frame_tpu_torch.cli.tvl1flow``,
            ``python -m frame2frame_tpu_torch.cli.blind_denoising``
 - config:  ``Config``, ``optional``, ``extract_pairs``, ``dcat``,
@@ -73,7 +76,7 @@ evaluation (``eval.test.run``).
            trace, named regions and memory snapshot (``profiling``)
 """
 
-__version__ = "0.8.0"
+__version__ = "0.9.0"
 
 from . import config
 from .config import Config, cfg_grid, dcat, extract_pairs, optional

@@ -67,17 +67,16 @@ def load_model(cfg, device=None):
     tensors."""
     cfg = extract_model_config(cfg)
     mtype = optional(cfg, "net_name", "dncnn")
-    if cfg.model_dtype != "float32":
-        raise ValueError(f"model_dtype {cfg.model_dtype!r}: the port's models "
-                         "hold f32 weights (conv_impl picks the bf16 graph)")
+    dtype = model_dtype(cfg.model_dtype)
     device = resolve_device(device)
     if mtype == "dncnn":
         model, variables = init_dncnn(
             cfg.seed, channels=cfg.channels, num_layers=cfg.num_of_layers,
-            residual=cfg.residual, conv_impl=cfg.conv_impl)
+            residual=cfg.residual, conv_impl=cfg.conv_impl, dtype=dtype)
         arch = dncnn
     elif mtype in FASTDVD_NAMES:
-        model, variables = init_fastdvdnet(cfg.seed, channels=cfg.channels)
+        model, variables = init_fastdvdnet(cfg.seed, channels=cfg.channels,
+                                           dtype=dtype)
         arch = fastdvdnet
     else:
         raise ValueError(f"Unknown model type [{mtype}]")
@@ -106,6 +105,15 @@ def load_model(cfg, device=None):
 
     return Config(model=model, variables=variables, apply=apply, cfg=cfg,
                   video_model=mtype in FASTDVD_NAMES)
+
+
+def model_dtype(name):
+    """The torch dtype of a ``model_dtype`` name ("float32", "bfloat16",
+    ...): the activations' dtype; the parameters stay f32."""
+    dtype = getattr(torch, str(name), None)
+    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+        raise ValueError(f"model_dtype {name!r} is not a floating dtype")
+    return dtype
 
 
 def arch_of(model):

@@ -32,6 +32,17 @@ the JAX model's does (``CONV_IMPLS``):
 - ``"packed_bf16"`` and ``"fused"`` on an odd width: the f32 graph, as the
   JAX model falls back per call (pair packing needs an even width).
 
+``dtype`` (the JAX model's ``dtype``, ``load_model``'s ``model_dtype``) is
+the activations' dtype on the unpacked routes ("xla", "pallas", "hybrid",
+"bf16res", and "packed", "packed_bf16", "fused" on an odd width); the
+parameters stay f32. There each convolution's output is cast to it: "xla"
+convolves operands cast to it, as flax's ``nn.Conv(dtype=)`` does, while
+"pallas", "hybrid" and "bf16res" convolve in f32 and cast the result, as
+the JAX package's ``Conv3x3`` does, so kernels A and B see f32 operands.
+BatchNorm computes in f32 and returns ``dtype``. On the packed routes at an
+even width ``dtype`` changes nothing, as in the JAX model, whose packed
+convolutions take their dtype from ``conv_impl``.
+
 In training mode BatchNorm normalises with the batch's biased variance and
 stores that biased variance in the running statistics (``nn.BatchNorm2d``
 would store the unbiased one); the running statistics are updated once, after
@@ -65,11 +76,12 @@ class DnCNN(nn.Module):
     (``ops.conv3x3.conv_function``)."""
 
     def __init__(self, channels=1, num_layers=17, features=64, residual=False,
-                 conv_impl="fused", remat_every=0):
+                 conv_impl="fused", remat_every=0, dtype=torch.float32):
         super().__init__()
         if conv_impl not in CONV_IMPLS:
             raise ValueError(f"conv_impl must be one of {CONV_IMPLS}, got "
                              f"{conv_impl!r}")
+        self.dtype = dtype
         self.channels = channels
         self.num_layers = num_layers
         self.features = features
@@ -97,11 +109,16 @@ class DnCNN(nn.Module):
     def forward(self, x):
         """x: (B, H, W, C) f32 -> noise or denoised image, (B, H, W, C) f32."""
         impl = self.conv_impl
+        packed = (impl in ("packed", "packed_bf16", "fused")
+                  and x.shape[2] % 2 == 0)
         if impl in ("packed_bf16", "fused"):
-            impl = "bf16" if x.shape[2] % 2 == 0 else "xla"
+            impl = "bf16" if packed else "xla"
         bf16 = impl == "bf16"
         conv = conv_function(impl, self.plain_backward)
         bn = _bn_bf16 if bf16 else _bn_f32
+        if not packed and self.dtype != torch.float32:
+            conv, bn = _in_dtype(conv, bn, impl in ("xla", "packed"),
+                                 self.dtype)
         h = x.to(torch.bfloat16) if bf16 else x
         h = torch.relu(conv(h, _kernel(self.conv_in)))
 
@@ -124,12 +141,34 @@ class DnCNN(nn.Module):
             else:
                 h, st = group(h, i0, k)
             stats += st
-        noise = conv(h, _kernel(self.conv_out)).float()
+        noise = conv(h, _kernel(self.conv_out))
+        if bf16:
+            noise = noise.float()
         if self.training and stats:
             update_running_stats([self.mid(i) for i in range(self.nmid)],
                                  torch.stack([m for m, _ in stats]),
                                  torch.stack([v for _, v in stats]))
         return x - noise if self.residual else noise
+
+
+def _in_dtype(conv, bn, library, dtype):
+    """The convolution and BatchNorm of an unpacked route with activations
+    in ``dtype`` (the JAX model's ``dtype``): the library's convolution on
+    operands cast to ``dtype`` (flax's ``nn.Conv``), the other routes' in
+    f32 with the result cast (the JAX package's ``Conv3x3``); BatchNorm in
+    f32, its output cast (flax's ``nn.BatchNorm``)."""
+    if library:
+        def conv_d(h, w):
+            return conv(h.to(dtype), w.to(dtype))
+    else:
+        def conv_d(h, w):
+            return conv(h.float(), w).to(dtype)
+
+    def bn_d(bn_i, z, training):
+        y, st = bn(bn_i, z.float(), training)
+        return y.to(dtype), st
+
+    return conv_d, bn_d
 
 
 def _kernel(conv):
@@ -148,6 +187,12 @@ def _bn_f32(bn, z, training):
         return y.permute(0, 2, 3, 1), None
     with torch.no_grad():
         var, mean = torch.var_mean(z, dim=(0, 1, 2), unbiased=False)
+    if z.device.type == "cpu":
+        # the CPU's batch_norm on a channels-last view sums a channel's
+        # statistics and gradients in f32 one value after another (4e-5 off
+        # float64 at 61 440 values a channel on one thread); on contiguous
+        # NCHW its reductions stay within 6e-7
+        zc = zc.contiguous()
     y = F.batch_norm(zc, None, None, bn.weight, bn.bias, True, 0.0, bn.eps)
     return y.permute(0, 2, 3, 1), (mean, var)
 
@@ -179,7 +224,7 @@ def update_running_stats(mids, means, vars_):
 
 
 def init_dncnn(seed=0, channels=1, num_layers=17, residual=False,
-               conv_impl="auto", remat_every=0):
+               conv_impl="auto", remat_every=0, dtype=torch.float32):
     """A new DnCNN and its JAX-layout variables: ``(model, variables)``.
 
     Conv kernels are lecun-normal as flax initialises them (a normal
@@ -189,7 +234,7 @@ def init_dncnn(seed=0, channels=1, num_layers=17, residual=False,
     mean 0, variance 1. ``conv_impl="auto"`` is ``"fused"``."""
     model = DnCNN(channels=channels, num_layers=num_layers, residual=residual,
                   conv_impl="fused" if conv_impl == "auto" else conv_impl,
-                  remat_every=remat_every)
+                  remat_every=remat_every, dtype=dtype)
     gen = torch.Generator().manual_seed(seed)
     # flax's truncated normal: unit variance after truncation at +-2
     std_of_truncated = 0.87962566103423978
@@ -235,15 +280,16 @@ def load_jax_variables(model, variables):
 
 
 def from_jax_variables(variables, residual=False, conv_impl="fused",
-                       remat_every=0):
-    """The JAX variable tree -> a ``DnCNN`` (CPU, f32) holding its weights.
-    Channels and depth are read from the tree."""
+                       remat_every=0, dtype=torch.float32):
+    """The JAX variable tree -> a ``DnCNN`` (CPU, f32 weights, activations
+    in ``dtype``) holding its weights. Channels and depth are read from the
+    tree."""
     params = variables["params"]
     k_in = np.asarray(params["conv_in"]["kernel"])
     nmid = sum(1 for k in params if k.startswith("conv_") and k[5:].isdigit())
     model = DnCNN(channels=k_in.shape[2], num_layers=nmid + 2,
                   features=k_in.shape[3], residual=residual,
-                  conv_impl=conv_impl, remat_every=remat_every)
+                  conv_impl=conv_impl, remat_every=remat_every, dtype=dtype)
     return load_jax_variables(model, variables)
 
 

@@ -24,6 +24,12 @@ variance and moves the running statistics by ``new = 0.9 * old + 0.1 *
 batch`` with that biased variance, once a call of the block, so that
 ``temp1``'s statistics move three times a window, as under
 ``mutable=["batch_stats"]`` in the JAX package.
+
+``dtype`` (the JAX model's ``dtype``, ``load_model``'s ``model_dtype``) is
+the activations' dtype; the parameters stay f32. Every convolution takes
+its operands cast to it, as flax's ``nn.Conv(dtype=)`` does, and BatchNorm
+computes in f32 and returns it; the residual subtractions of the frames
+give f32, as in the JAX model.
 """
 
 from __future__ import annotations
@@ -69,13 +75,17 @@ def _batch_norm(bn, x):
     return F.batch_norm(x, None, None, bn.weight, bn.bias, True, 0.0, bn.eps)
 
 
-def _run(seq, x):
-    """The layers of a ``convblock`` on NCHW ``x``."""
+def _run(seq, x, dtype):
+    """The layers of a ``convblock`` on NCHW ``x``, activations in
+    ``dtype``."""
+    cast = dtype != torch.float32
     for m in seq:
         if isinstance(m, nn.Conv2d):
-            x = conv2d(x, m.weight, m.stride[0], m.groups)
+            w = m.weight.to(dtype) if cast else m.weight
+            x = conv2d(x.to(dtype) if cast else x, w, m.stride[0], m.groups)
         elif isinstance(m, nn.BatchNorm2d):
-            x = _batch_norm(m, x)
+            x = (_batch_norm(m, x.float()).to(dtype) if cast
+                 else _batch_norm(m, x))
         elif isinstance(m, nn.ReLU):
             x = torch.relu(x)
         elif isinstance(m, nn.PixelShuffle):
@@ -86,8 +96,10 @@ def _run(seq, x):
 
 
 class _Block(nn.Module):
+    dtype = torch.float32  # the activations' dtype, set by FastDVDnet
+
     def forward(self, x):
-        return _run(self.convblock, x)
+        return _run(self.convblock, x, self.dtype)
 
 
 class CvBlock(_Block):
@@ -171,11 +183,14 @@ class FastDVDnet(nn.Module):
     (B, H, W, 1), sigma in the pixels' scale (zeros when None). Returns
     (B, H, W, C). H and W divisible by 4, as the JAX model needs."""
 
-    def __init__(self, channels=3):
+    def __init__(self, channels=3, dtype=torch.float32):
         super().__init__()
         self.channels = channels
         self.temp1 = DenBlock(channels)
         self.temp2 = DenBlock(channels)
+        for m in self.modules():
+            if isinstance(m, _Block):
+                m.dtype = dtype
 
     def forward(self, frames, noise_map=None):
         if frames.dim() == 4:  # (B,H,W,5*C) packed -> unpack
@@ -199,10 +214,10 @@ class FastDVDnetVideo(nn.Module):
     (standard FastDVDnet inference), (B, T, H, W, C) -> (B, T, H, W, C).
     ``sigma`` gives a constant noise map where ``noise_map`` is None."""
 
-    def __init__(self, channels=3):
+    def __init__(self, channels=3, dtype=torch.float32):
         super().__init__()
         self.channels = channels
-        self.net = FastDVDnet(channels)
+        self.net = FastDVDnet(channels, dtype)
 
     def forward(self, vid, noise_map=None, sigma=None):
         B, T, H, W, C = vid.shape
@@ -328,19 +343,19 @@ def load_jax_variables(model, variables):
     return model
 
 
-def from_jax_variables(variables):
+def from_jax_variables(variables, dtype=torch.float32):
     """The JAX variable tree -> a ``FastDVDnetVideo`` (a ``net`` level) or a
-    ``FastDVDnet`` (CPU, f32) holding its weights. The channels are read
-    from the tree."""
+    ``FastDVDnet`` (CPU, f32 weights, activations in ``dtype``) holding its
+    weights. The channels are read from the tree."""
     params = variables["params"]
     video = "net" in params
     net = params["net"] if video else params
     channels = np.asarray(net["temp2"]["outc"]["conv1"]["kernel"]).shape[-1]
-    model = (FastDVDnetVideo if video else FastDVDnet)(channels)
+    model = (FastDVDnetVideo if video else FastDVDnet)(channels, dtype)
     return load_jax_variables(model, variables)
 
 
-def init_fastdvdnet(seed=0, channels=3):
+def init_fastdvdnet(seed=0, channels=3, dtype=torch.float32):
     """A new ``FastDVDnetVideo`` and its JAX-layout variables: ``(model,
     variables)``.
 
@@ -350,7 +365,7 @@ def init_fastdvdnet(seed=0, channels=3):
     seeded with ``seed``: the values differ from
     ``jax.random.PRNGKey(seed)``'s.
     BatchNorm starts at scale 1, bias 0, mean 0, variance 1."""
-    model = FastDVDnetVideo(channels)
+    model = FastDVDnetVideo(channels, dtype)
     gen = torch.Generator().manual_seed(seed)
     # flax's truncated normal: unit variance after truncation at +-2
     std_of_truncated = 0.87962566103423978

@@ -34,6 +34,9 @@ setup(
         "console_scripts": [
             "f2f-blind-denoise=frame2frame_tpu.cli.blind_denoising:main",
             "f2f-tvl1flow=frame2frame_tpu.cli.tvl1flow:main",
+            "f2f-torch-blind-denoise="
+            "frame2frame_tpu_torch.cli.blind_denoising:main",
+            "f2f-torch-tvl1flow=frame2frame_tpu_torch.cli.tvl1flow:main",
         ]
     },
 )

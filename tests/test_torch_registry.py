@@ -197,8 +197,11 @@ def test_fastdvdnet_train_apply_with_a_noise_map():
 def test_unknown_net_name_raises():
     with pytest.raises(ValueError, match="Unknown model type"):
         tpkg.load_model({"net_name": "unet"}, device="cpu")
-    with pytest.raises(ValueError, match="model_dtype"):
-        tpkg.load_model({"model_dtype": "bfloat16"}, device="cpu")
+    # model_dtype="bfloat16" builds (f32 parameters, bf16 activations);
+    # tests/test_torch_model_dtype.py holds it against the JAX package
+    ms = tpkg.load_model({"model_dtype": "bfloat16"}, device="cpu")
+    assert ms.model.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in ms.model.parameters())
 
 
 @pytest.mark.parametrize("cfg", [
