@@ -189,12 +189,24 @@ Phases, any failure exits non-zero:
    version; a second call skips every config and launches nothing; the
    ``trte_dncnn`` test launcher in process (``fwd_layer`` held on its
    inputs); the ``trte_net`` pair (FastDVDnet);
-17. ``load_model`` with ``model_dtype="bfloat16"`` on "pallas"
+17. multi-device training with the card repeated (``shard_phase``): the
+   pretrained DnCNN-17 on "fused"; the f2f step (``parallel/shard.py``) at
+   540p, B = 2, T = 4 on meshes (1, 1), (2, 1), (1, 2), (2, 2) with
+   ``train_bn=False`` (the loss within 1e-4 of the unsharded step, the
+   weights by the adaptation rule, 17 kernel B a shard a step, peak
+   memory), with ``train_bn=True`` on (2, 2) twice (the same bits); the
+   warped and stnls window steps on 128x128 crops on (1, 2); the sup step
+   on (2, 2); ``trainer.run`` on ``exps/trte_dncnn/train.cfg``'s 64x64
+   clips at batch size 2 on two shards against one device, on "fused" and
+   "pallas" (one more shard's kernel A and B a step); kernel B on the
+   (2, 2) step's inputs and kernels A, B and the inner loop on a
+   data-parallel "pallas" step's against their plain versions;
+18. ``load_model`` with ``model_dtype="bfloat16"`` on "pallas"
    (``model_dtype_phase``): the pretrained DnCNN-17 serves a 540p frame and
    takes one training forward and backward on a 128x128 crop (50 kernel A,
    17 kernel B), the kernels held on those inputs, the bf16 output on the
    crop against the CPU's at the bf16 graph's bound;
-18. a JSON line of per-kernel numbers (launches by path: each kernel is
+19. a JSON line of per-kernel numbers (launches by path: each kernel is
    launched on every path it belongs to and on no other), then the card
    line, then the result line ``{"ok": true, "device": {...}}``.
 
@@ -468,6 +480,32 @@ EVAL_CFG = dict(
     conv_impl="fused", pretrained_load=True, pretrained_path=str(CKPT),
     dname="evalset", dset="te", vid_name="vid00", sigma=25, read_flows=True,
     save_deno=False, seed=123, lr_init=1e-4)
+# multi-device training on one card (shard_phase): the pretrained
+# DnCNN-17 on "fused", the f2f step at 540p on SHARD_B rows of SHARD_T
+# frames over each of SHARD_MESHES (the card repeated), Adam at SHARD_LR;
+# with train_bn=False a sharded step is the unsharded one but for the sums'
+# order: the loss within SHARD_LOSS_RTOL, the weights by the adaptation
+# rule (SHARD_SHARE of the elements within 1e-5, all within two learning
+# rates a step); the window steps on a SHARD_CROP crop; trainer.run on two
+# shards against one device, one SGD step at train.cfg's lr_init: the loss
+# within SHARD_TRAINER_LOSS_RTOL, the update (the learning rate times the
+# gradient) within SHARD_TRAINER_UPDATE_RTOL and the running statistics'
+# move within SHARD_TRAINER_STATS_RTOL of one device's, relative in the
+# 2-norm (the whole batch's statistics summed by shard round differently);
+# the shards' own statistics, or the whole batch's detached, fail it
+SHARD_B, SHARD_T = 2, 4
+SHARD_MESHES = ((1, 1), (2, 1), (1, 2), (2, 2))
+SHARD_LR = 1e-4
+SHARD_LOSS_RTOL = 1e-4
+SHARD_SHARE = 0.995
+SHARD_CROP = (slice(200, 328), slice(300, 428))
+SHARD_TRAINER_LOSS_RTOL = 1e-4
+# the H100's readings (NVIDIA H100 80GB HBM3, 700 W): the update 5.7e-3
+# "fused", 1.1e-3 "pallas", the planted faults 0.53 and 3.3; the running
+# statistics 1.9e-7, the shards' own statistics 9.4e-3
+SHARD_TRAINER_UPDATE_RTOL = 2e-2
+SHARD_TRAINER_STATS_RTOL = 1e-5
+SHARD_PHASE_S = 60
 REPLACES = {
     "fwd_layer": "frame2frame_tpu/ops/fused_stack.py:673",
     "fwd_layer_train": "frame2frame_tpu/ops/fused_stack.py:673",
@@ -2665,6 +2703,42 @@ def _same_tree(a, b, path="", what="final.msgpack"):
           f"{what}: {path} differs from the state written")
 
 
+def ring_check(d):
+    """The native prefetch ring over ``d``'s ``noisy_NNN.pgm`` frames and
+    ``flow_NNN.flo`` flows (frames 2 on) against the Python readers, bit
+    for bit; the host ms a frame of each, and whether the library has
+    PNG."""
+    from frame2frame_tpu_torch.io import native as native_io
+    from frame2frame_tpu_torch.io.flo import read_flo
+    from frame2frame_tpu_torch.io.image import read_frame
+
+    t0 = time.perf_counter()
+    has_png = native_io.has_png()
+    build_s = time.perf_counter() - t0
+    frames = [str(d / f"noisy_{i:03d}.pgm")
+              for i in range(1, STREAM_FRAMES + 1)]
+    flos = [None] + [str(d / f"flow_{i:03d}.flo")
+                     for i in range(2, STREAM_FRAMES + 1)]
+    t0 = time.perf_counter()
+    with native_io.NativePrefetcher(frames, flos) as pf:
+        ring = [pf.get(k) for k in range(STREAM_FRAMES)]
+    ring_ms = (time.perf_counter() - t0) * 1e3 / STREAM_FRAMES
+    t0 = time.perf_counter()
+    py = [(np.asarray(read_frame(f, 0), np.float32),
+           None if fl is None else read_flo(fl).astype(np.float32))
+          for f, fl in zip(frames, flos)]
+    py_ms = (time.perf_counter() - t0) * 1e3 / STREAM_FRAMES
+    for k, ((a, fa), (b, fb)) in enumerate(zip(ring, py)):
+        check(a.dtype == b.dtype and np.array_equal(a, b)
+              and (fa is None) == (fb is None)
+              and (fa is None or np.array_equal(fa, fb)),
+              f"streaming: the ring's frame {k + 1} differs from the "
+              "Python readers'")
+    return {"frames": STREAM_FRAMES, "bit_equal": True, "has_png": has_png,
+            "build_or_load_s": build_s, "ring_ms_a_frame": ring_ms,
+            "python_ms_a_frame": py_ms}
+
+
 def streaming_phase(torch, fs, psnr, variables):
     """The streaming loop: a 5-frame 540p PGM sequence through the CLI on
     the flat route with ``AsyncFlowSolver``, then ``run_blind_denoising``
@@ -2697,6 +2771,12 @@ def streaming_phase(torch, fs, psnr, variables):
                 write_pgm(d / f"{name}_{i:03d}.pgm",
                           np.round(255.0 * img[i - 1, ..., 0]))
             write_flo(d / f"flow_{i:03d}.flo", flows[i - 1])
+
+        # the native ring (io/native.py, built here with g++) against the
+        # Python readers on the sequence's PGM frames and .flo files
+        out["ring"] = ring_check(d)
+        print("streaming native ring: " + json.dumps(out["ring"]),
+              flush=True)
 
         def gain_check(tag, run_dir, first, last):
             lines = (run_dir / "plot_psnr.txt").read_text().splitlines()
@@ -2758,7 +2838,7 @@ def streaming_phase(torch, fs, psnr, variables):
             want = {k: 2 * n for k, n in CONV_LAUNCHES["pallas"].items()}
             done = count_run(torch, fs, want, "streaming pallas")
             t0 = time.perf_counter()
-            online.run_blind_denoising(
+            res = online.run_blind_denoising(
                 from_jax_variables(variables, conv_impl="pallas"), variables,
                 input_tmpl=str(d / "noisy_%03d.pgm"),
                 flow_tmpl=str(d / "flow_%03d.flo"),
@@ -2771,6 +2851,8 @@ def streaming_phase(torch, fs, psnr, variables):
             secs = time.perf_counter() - t0
             done()
             launches["stream_pallas"] = fs.launch_counts()
+            check(res["loader"] == "native", "streaming pallas: the frames "
+                  f"were read by the {res['loader']} loader, not the ring")
             lines, gains = gain_check("streaming pallas", run, 1, 3)
             read_back("streaming pallas", run)
             out["pallas"] = {"frames": 2, "s": secs,
@@ -4054,6 +4136,327 @@ def offline_phase(torch, fs):
     return launches, out
 
 
+def tree_flat(tree):
+    """The leaves of a nested dict of arrays in sorted-key order, raveled
+    into one float64 vector."""
+    if isinstance(tree, dict):
+        return np.concatenate([tree_flat(tree[k]) for k in sorted(tree)])
+    return np.asarray(tree, np.float64).ravel()
+
+
+def hold_update(tag, got, ref, lr, steps=1, rtol=0.0, atol=1e-5,
+                share_min=SHARD_SHARE):
+    """Two updated weight trees by the adaptation rule: at least
+    ``share_min`` of the elements within ``atol + rtol |ref|``, every
+    element within two learning rates a step. Returns (share, largest)."""
+    g, r = tree_flat(got), tree_flat(ref)
+    err = np.abs(g - r)
+    share = float(np.mean(err <= atol + rtol * np.abs(r)))
+    worst = float(err.max())
+    check(np.isfinite(g).all() and share >= share_min
+          and worst <= 2 * lr * steps,
+          f"{tag}: {share} of the weights within bounds, largest off "
+          f"{worst} (two learning rates a step: {2 * lr * steps})")
+    return share, worst
+
+
+def update_distance(got, ref, w0):
+    """Two ``trainer.run`` results of one step from the weights ``w0``: the
+    loss's relative distance, and the 2-norm of the difference of their
+    updates over the 2-norm of ``ref``'s, for the parameters and for the
+    running statistics."""
+    def rel(key):
+        u = tree_flat(got.state.variables[key]) - tree_flat(w0[key])
+        v = tree_flat(ref.state.variables[key]) - tree_flat(w0[key])
+        return float(np.linalg.norm(u - v) / np.linalg.norm(v))
+
+    return {"loss_rel": abs(got["train_loss"] - ref["train_loss"])
+            / abs(ref["train_loss"]),
+            "params_rel": rel("params"), "stats_rel": rel("batch_stats")}
+
+
+def shard_clip():
+    """(noisy, clean, bflow) of ``SHARD_B`` rows of ``SHARD_T`` 540p frames
+    (``moving_frames`` at two seeds), (B, T, H, W, C) numpy."""
+    rows = [moving_frames(SHARD_T, seed=s) for s in (3, 7)][:SHARD_B]
+    return (np.stack([r[1] for r in rows]), np.stack([r[0] for r in rows]),
+            np.stack([r[2] for r in rows]))
+
+
+def shard_phase(torch, fs, dev):
+    """Multi-device training on one card (``parallel/mesh.py``,
+    ``parallel/shard.py``, ``parallel/data.py``): every mesh is the card
+    repeated, its shards run one after another. The pretrained DnCNN-17 on
+    "fused" (the module route: the bf16 graph, kernel B for every dW):
+
+    - the f2f step at 540p, B = 2, T = 4 (``moving_frames``, analytic
+      flows) on meshes (1, 1), (2, 1), (1, 2), (2, 2) with
+      ``train_bn=False``: the loss within ``SHARD_LOSS_RTOL`` of the
+      unsharded (1, 1) step, the weights by the adaptation rule, 17 kernel
+      B a shard a step, peak memory; ``train_bn=True`` on (2, 2) twice,
+      the same bits;
+    - the warped and stnls window steps on 128x128 crops, wt = 1, mesh
+      (1, 2) against (1, 1);
+    - the sup step on (2, 2);
+    - ``trainer.run`` on ``exps/trte_dncnn/train.cfg``'s base (64x64
+      clips) at ``batch_size=2`` on ``[cuda:0] * 2`` against one device, on
+      "fused" and on "pallas", one SGD step: the loss, the update and the
+      running statistics, one more shard's kernel A and B launches, the
+      flows' inner loop as on one device; on "fused", the shards' own
+      BatchNorm statistics and the whole batch's detached, planted, fail
+      that hold;
+    - kernel B on the (2, 2) f2f step's inputs, and kernels A, B and the
+      inner loop on the "pallas" data-parallel step's, against their plain
+      versions.
+
+    ``dev`` is the card. The holds run first; the counts are set to 0
+    before the counted runs and read after them. Returns (launch counts,
+    timings and checks)."""
+    import tempfile
+
+    import frame2frame_tpu_torch as port
+    from frame2frame_tpu_torch.losses.stnls import DnlsLoss
+    from frame2frame_tpu_torch.losses.warped import WarpedLoss
+    from frame2frame_tpu_torch.models.dncnn import (
+        JaxRavel, from_jax_variables)
+    from frame2frame_tpu_torch.models.serialization import load_variables
+    from frame2frame_tpu_torch.parallel import mesh as pm
+    from frame2frame_tpu_torch.parallel import shard as ps
+    from frame2frame_tpu_torch.train import trainer
+    from frame2frame_tpu_torch.train.online import torch_adam
+
+    t_phase = time.perf_counter()
+    card4 = [dev] * 4
+    variables = load_variables(CKPT)
+    model = from_jax_variables(variables, residual=True,
+                               conv_impl="fused").to(dev)
+    tx = torch_adam(SHARD_LR)
+    opt0 = tx.init(JaxRavel(model).ravel())
+    noisy, clean, bflow = (torch.from_numpy(a).to(dev) for a in shard_clip())
+    out = {}
+
+    def f2f(shape, train_bn=False):
+        step = ps.make_sharded_f2f_step(
+            model, pm.make_mesh(*shape, devices=card4), tx,
+            train_bn=train_bn)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        b0 = fs.launch_counts()["dw_conv3x3"]
+        t0 = time.perf_counter()
+        p, bs, _, loss = step(variables["params"], variables["batch_stats"],
+                              opt0, noisy, bflow)
+        torch.cuda.synchronize()
+        return {"params": p, "batch_stats": bs, "loss": float(loss),
+                "ms": (time.perf_counter() - t0) * 1e3,
+                "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                "kernel_b": fs.launch_counts()["dw_conv3x3"] - b0}
+
+    # (a) the holds, on inputs the path hands the kernels (not counted)
+    seen = read_path_kernels(torch, lambda: f2f((2, 2)))
+    check(len(seen["b"]) == 17 * 4, f"shard f2f (2, 2): {len(seen['b'])} "
+          "dW calls, expected 68")
+    out["kernels_held_f2f"] = hold_path_kernels(torch, "shard f2f", seen,
+                                                terms_scale=True)
+    del seen
+    torch.cuda.empty_cache()
+
+    def trainer_cfg(conv_impl, tmp, tag):
+        spec = json.loads((REPO / "exps" / "trte_dncnn"
+                           / "train.cfg").read_text())
+        return dict(spec["base"], sigma=25, batch_size=2, seed=0,
+                    conv_impl=conv_impl, checkpoint_dir=str(Path(tmp) / tag),
+                    uuid=tag, nepochs=1, limit_train_batches=1,
+                    optim_name="sgd", sgd_momentum=0.0, sgd_dampening=0.0)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # kernels A, B and the inner loop on one data-parallel step
+        from frame2frame_tpu_torch.train import lit as lit_mod
+        step = lit_mod.TrainModule.training_step
+        calls = []
+
+        def first_step(self, *a, **kw):
+            if calls:
+                return step(self, *a, **kw)
+            calls.append(1)
+            res = []
+            seen = read_path_kernels(
+                torch, lambda: res.append(step(self, *a, **kw)))
+            calls.append(seen)
+            return res[0]
+
+        lit_mod.TrainModule.training_step = first_step
+        try:
+            trainer.run(trainer_cfg("pallas", tmp, "hold"),
+                        devices=[dev] * 2)
+        finally:
+            lit_mod.TrainModule.training_step = step
+        seen = calls[1]
+        check(len(seen["a"]) > 0 and len(seen["b"]) > 0
+              and len(seen["flow"]) > 0,
+              f"shard trainer: kernels seen {[len(v) for v in seen.values()]}")
+        out["kernels_held_trainer"] = hold_path_kernels(
+            torch, "shard trainer", seen, terms_scale=True)
+        del seen, calls
+        torch.cuda.empty_cache()
+
+        # (b) the counted runs
+        fs.reset_launch_counts()
+        t_counted = time.perf_counter()
+        f2f_out = {}
+        ref = f2f((1, 1))
+        for shape in SHARD_MESHES:
+            r = ref if shape == (1, 1) else f2f(shape)
+            n = shape[0] * shape[1]
+            check(r["kernel_b"] == 17 * n, f"shard f2f {shape}: kernel B "
+                  f"launched {r['kernel_b']} times, expected {17 * n}")
+            rel = abs(r["loss"] - ref["loss"]) / abs(ref["loss"])
+            check(rel <= SHARD_LOSS_RTOL, f"shard f2f {shape}: loss "
+                  f"{r['loss']} off the unsharded {ref['loss']} by {rel}")
+            share, worst = hold_update(f"shard f2f {shape}", r["params"],
+                                       ref["params"], SHARD_LR)
+            f2f_out[str(shape)] = {
+                "loss": r["loss"], "loss_rel": rel, "weights_share": share,
+                "weights_max_err": worst, "ms": r["ms"],
+                "peak_gb": r["peak_gb"], "kernel_b": r["kernel_b"]}
+        bn = [f2f((2, 2), train_bn=True) for _ in range(2)]
+        same = (bn[0]["loss"] == bn[1]["loss"]
+                and np.array_equal(tree_flat(bn[0]["params"]),
+                                   tree_flat(bn[1]["params"]))
+                and np.array_equal(tree_flat(bn[0]["batch_stats"]),
+                                   tree_flat(bn[1]["batch_stats"])))
+        check(same, "shard f2f (2, 2) train_bn: two runs differ")
+        check(not np.array_equal(tree_flat(bn[0]["batch_stats"]),
+                                 tree_flat(variables["batch_stats"])),
+              "shard f2f train_bn: the running statistics did not move")
+        f2f_out["(2, 2) train_bn"] = {"loss": bn[0]["loss"],
+                                      "ms": bn[0]["ms"], "same_bits": same}
+        out["f2f"] = f2f_out
+        print("shard f2f 540p B=2 T=4: " + json.dumps(f2f_out), flush=True)
+
+        # (c) the window steps on 128x128 crops, (1, 2) against (1, 1)
+        crop = (slice(0, 1), slice(None), SHARD_CROP[0], SHARD_CROP[1])
+        vids = [noisy[crop], clean[crop], -bflow[crop], bflow[crop]]
+        windows = {}
+        for kind, loss in (
+                ("warped", WarpedLoss(wt=1, dist_crit="l2")),
+                ("stnls", DnlsLoss(ws=3, wt=1, ps=3, k=2, stride0=2,
+                                   dist_crit="v0", dist_mask=10.0,
+                                   search_input="deno", nepochs=10))):
+            res = {}
+            for shape in ((1, 1), (1, 2)):
+                step = ps.make_sharded_window_step(
+                    model, pm.make_mesh(*shape, devices=card4), tx, loss,
+                    kind=kind, wt=1)
+                t0 = time.perf_counter()
+                p, _, _, lv = step(variables["params"],
+                                   variables["batch_stats"], opt0, *vids)
+                torch.cuda.synchronize()
+                res[shape] = (p, float(lv), (time.perf_counter() - t0) * 1e3)
+            rel = abs(res[(1, 2)][1] - res[(1, 1)][1]) / abs(res[(1, 1)][1])
+            check(rel <= SHARD_LOSS_RTOL, f"shard {kind} window: loss off "
+                  f"the unsharded by {rel}")
+            share, worst = hold_update(f"shard {kind} window",
+                                       res[(1, 2)][0], res[(1, 1)][0],
+                                       SHARD_LR)
+            windows[kind] = {"loss": res[(1, 2)][1], "loss_rel": rel,
+                             "weights_share": share,
+                             "weights_max_err": worst,
+                             "ms": {str(k): v[2] for k, v in res.items()}}
+        out["windows"] = windows
+        print("shard window steps 128x128 (1, 2): " + json.dumps(windows),
+              flush=True)
+
+        # (d) the sup step on (2, 2)
+        step = ps.make_sharded_sup_step(
+            model, pm.make_mesh(2, 2, devices=card4), tx)
+        t0 = time.perf_counter()
+        p, bs, _, lv = step(variables["params"], variables["batch_stats"],
+                            opt0, noisy, clean)
+        torch.cuda.synchronize()
+        sup = {"loss": float(lv), "ms": (time.perf_counter() - t0) * 1e3}
+        check(np.isfinite(sup["loss"]) and np.isfinite(tree_flat(p)).all()
+              and np.isfinite(tree_flat(bs)).all(),
+              f"shard sup (2, 2): {sup}")
+        out["sup"] = sup
+
+        # (e) trainer.run on two shards of the card against one device, one
+        # SGD step each: its update is the learning rate times the gradient
+        # (Adam's first step would move nearly every weight by a whole
+        # learning rate, its sign set by rounding where a gradient is near
+        # 0). Two planted faults, the shards' own BatchNorm statistics and
+        # the whole batch's detached from the graph, must fail the hold
+        from frame2frame_tpu_torch.models import sync_bn
+        whole = sync_bn.mean
+        faults = {"local_bn": lambda x, dims: x.mean(dims),
+                  "detached_bn": lambda x, dims: whole(x, dims).detach()}
+        runs = {}
+        for conv_impl in ("fused", "pallas"):
+            w0 = port.load_model(trainer_cfg(conv_impl, tmp, "w0"),
+                                 device=dev).variables
+            res = {}
+            tags = [("dp", [dev] * 2, None), ("one", [dev], None)]
+            if conv_impl == "fused":
+                tags += [(k, [dev] * 2, fn) for k, fn in faults.items()]
+            for tag, devices, fault in tags:
+                before = dict(fs.launch_counts())
+                t0 = time.perf_counter()
+                sync_bn.mean = fault or whole
+                try:
+                    r = trainer.run(trainer_cfg(conv_impl, tmp,
+                                                f"{conv_impl}_{tag}"),
+                                    devices=devices)
+                finally:
+                    sync_bn.mean = whole
+                torch.cuda.synchronize()
+                after = fs.launch_counts()
+                res[tag] = (r, time.perf_counter() - t0,
+                            {k: after[k] - before[k] for k in after})
+            dp, one = res["dp"], res["one"]
+            check(dp[0].state.data_parallel is not None
+                  and one[0].state.data_parallel is None,
+                  f"shard trainer {conv_impl}: the mesh did not engage")
+            steps = dp[0].state.step
+            check(steps == 1, f"shard trainer {conv_impl}: {steps} steps")
+            extra = {k: dp[2][k] - one[2][k] for k in dp[2]}
+            want = {"dw_conv3x3": 17,
+                    "conv3x3_fwd": 33 if conv_impl == "pallas" else 0}
+            for k, n in extra.items():
+                check(n == want.get(k, 0), f"shard trainer {conv_impl}: "
+                      f"{k} launched {n} more times on two shards, "
+                      f"expected {want.get(k, 0)}")
+            check(dp[2]["tvl1_inner_loop"] > 0,
+                  f"shard trainer {conv_impl}: no flow solved")
+            readings = {tag: update_distance(res[tag][0], one[0], w0)
+                        for tag in res if tag != "one"}
+            for tag, rd in readings.items():
+                sound = tag == "dp"
+                held = (rd["loss_rel"] <= SHARD_TRAINER_LOSS_RTOL
+                        and rd["params_rel"] <= SHARD_TRAINER_UPDATE_RTOL
+                        and rd["stats_rel"] <= SHARD_TRAINER_STATS_RTOL)
+                check(held == sound, f"shard trainer {conv_impl} {tag}: "
+                      f"{rd} {'outside' if sound else 'inside'} the hold "
+                      f"(loss {SHARD_TRAINER_LOSS_RTOL}, update "
+                      f"{SHARD_TRAINER_UPDATE_RTOL}, running statistics "
+                      f"{SHARD_TRAINER_STATS_RTOL})")
+            runs[conv_impl] = {
+                "readings": readings,
+                "s": {tag: v[1] for tag, v in res.items()},
+                "launches_dp": {k: n for k, n in dp[2].items() if n}}
+        out["trainer"] = runs
+        print("shard trainer.run 64x64 B=2 on two shards, one SGD step: "
+              + json.dumps(runs), flush=True)
+        launches = dict(fs.launch_counts())
+        out["counted_s"] = time.perf_counter() - t_counted
+    elapsed = time.perf_counter() - t_phase
+    out["phase_s"] = elapsed
+    print(f"phase time: shard {elapsed:.1f} s", flush=True)
+    check(elapsed <= SHARD_PHASE_S, f"shard phase took {elapsed:.1f} s "
+          f"(limit {SHARD_PHASE_S})")
+    del model, noisy, clean, bflow
+    torch.cuda.empty_cache()
+    return launches, out
+
+
 def write_eval_clip(root):
     """The evaluation clip: ``EVAL_T`` 540p frames of the mixed synthetic
     texture moving ``EVAL_SHIFT`` a frame, as PGM files of
@@ -4612,6 +5015,9 @@ def main():
         torch.cuda.empty_cache()
         offline_launches, offline = offline_phase(torch, fs)
         torch.cuda.empty_cache()
+        shard_launches, shard = shard_phase(torch, fs,
+                                            torch.device("cuda", 0))
+        torch.cuda.empty_cache()
         eval_launches, evaluation = eval_phase(torch, fs)
         torch.cuda.empty_cache()
         launch_launches, launcher = launcher_phase(torch, fs)
@@ -4630,7 +5036,9 @@ def main():
     # the "pallas" route; spatial: the H-split fine-tune and serving;
     # registry: load_model's apply of a "fused" DnCNN; adapt: the
     # get_loss_fxn wrappers on a "fused" DnCNN; offline: trainer.run on a
-    # "fused" DnCNN; eval: eval.test.run's runs; launch: the launchers,
+    # "fused" DnCNN; shard: the sharded steps and the data-parallel
+    # trainer on "fused" and "pallas"; eval: eval.test.run's runs; launch:
+    # the launchers,
     # the dispatched workers' own counts included; model_dtype: load_model
     # with model_dtype="bfloat16" on "pallas"), and on no other path
     ends = ("flat", "flow", "stream")
@@ -4643,16 +5051,19 @@ def main():
              "first_conv": ends, "last_loss_fwd": ends,
              "last_loss_bwd": ends, "first_dw": ends,
              "tvl1_inner_loop": ("flow", "stream", "adapt", "offline",
-                                 "eval", "launch"),
-             "conv3x3_fwd": ("conv_pallas", "stream_pallas", "model_dtype"),
+                                 "shard", "eval", "launch"),
+             "conv3x3_fwd": ("conv_pallas", "stream_pallas", "shard",
+                             "model_dtype"),
              "dw_conv3x3": conv_paths + ("stream_pallas", "adapt", "offline",
-                                         "eval", "launch", "model_dtype")}
+                                         "shard", "eval", "launch",
+                                         "model_dtype")}
     by_path = {"serving": serve_launches, "training": train_launches,
                "flat": flat_launches, "flow": flow_launches,
                "stream": stream_launches["stream"],
                "stream_pallas": stream_launches["stream_pallas"],
                "spatial": spatial_launches, "registry": registry_launches,
                "adapt": adapt_launches, "offline": offline_launches,
+               "shard": shard_launches,
                "eval": eval_launches, "launch": launch_launches,
                "model_dtype": dtype_launches,
                **{f"conv_{impl}": conv_launches[impl]
@@ -4686,7 +5097,7 @@ def main():
                       "training": training, "flow": flow,
                       "conv_impl": conv_impl, "streaming": stream,
                       "spatial": spatial, "registry": registry,
-                      "adapt": adapt, "offline": offline,
+                      "adapt": adapt, "offline": offline, "shard": shard,
                       "eval": evaluation, "launcher": launcher,
                       "model_dtype": dtype_out}))
     print(card)

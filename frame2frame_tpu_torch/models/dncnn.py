@@ -61,6 +61,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.conv3x3 import conv_function
+from . import sync_bn
 
 CONV_IMPLS = ("fused", "xla", "packed", "packed_bf16", "pallas", "hybrid",
               "bf16res")
@@ -179,12 +180,20 @@ def _kernel(conv):
 
 def _bn_f32(bn, z, training):
     """BatchNorm of NHWC f32 ``z``: (y, None) with the running statistics,
-    (y, (mean, biased var)) with the batch's in training."""
+    (y, (mean, biased var)) with the batch's in training, the whole
+    batch's inside a data-parallel shard (``sync_bn``)."""
     zc = z.permute(0, 3, 1, 2)
     if not training:
         y = F.batch_norm(zc, bn.running_mean, bn.running_var, bn.weight,
                          bn.bias, False, 0.0, bn.eps)
         return y.permute(0, 2, 3, 1), None
+    if sync_bn.active():
+        # the whole batch's statistics over the data-parallel shards
+        mean = sync_bn.mean(z, (0, 1, 2))
+        d = z - mean
+        var = sync_bn.mean(d * d, (0, 1, 2))
+        y = d * (torch.rsqrt(var + bn.eps) * bn.weight) + bn.bias
+        return y, (mean.detach(), var.detach())
     with torch.no_grad():
         var, mean = torch.var_mean(z, dim=(0, 1, 2), unbiased=False)
     if z.device.type == "cpu":
@@ -203,8 +212,12 @@ def _bn_bf16(bn, z, training):
     chain stays bf16."""
     if training:
         zf = z.float()
-        m = zf.mean((0, 1, 2))
-        v = (zf * zf).mean((0, 1, 2)) - m * m
+        if sync_bn.active():
+            m = sync_bn.mean(zf, (0, 1, 2))
+            v = sync_bn.mean(zf * zf, (0, 1, 2)) - m * m
+        else:
+            m = zf.mean((0, 1, 2))
+            v = (zf * zf).mean((0, 1, 2)) - m * m
         stats = (m.detach(), v.detach())
     else:
         m, v, stats = bn.running_mean, bn.running_var, None

@@ -42,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops._common import conv2d
+from . import sync_bn
 from .dncnn import BN_MOMENTUM
 
 INTERM = 30  # features per frame group of InputCvBlock's grouped conv
@@ -64,10 +65,21 @@ def _batch_norm(bn, x):
     the running statistics move in place, without gradient. The batch's
     variance is taken in two passes, not as flax's ``E[x^2] - E[x]^2``,
     whose cancellation costs the gradients of the coarse levels (8x10 pixels
-    at a 32x40 input) several digits in f32."""
+    at a 32x40 input) several digits in f32. Inside a data-parallel shard
+    (``sync_bn``) the statistics are the whole batch's."""
     if not bn.training:
         return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
                             bn.bias, False, 0.0, bn.eps)
+    if sync_bn.active():
+        # the whole batch's statistics over the data-parallel shards
+        mean = sync_bn.mean(x, (0, 2, 3))
+        d = x - mean.view(1, -1, 1, 1)
+        var = sync_bn.mean(d * d, (0, 2, 3))
+        with torch.no_grad():
+            for buf, batch in ((bn.running_mean, mean), (bn.running_var, var)):
+                buf.mul_(BN_MOMENTUM).add_(batch, alpha=1 - BN_MOMENTUM)
+        scale = torch.rsqrt(var + bn.eps) * bn.weight
+        return d * scale.view(1, -1, 1, 1) + bn.bias.view(1, -1, 1, 1)
     with torch.no_grad():
         var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
         bn.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)

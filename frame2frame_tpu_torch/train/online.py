@@ -431,7 +431,14 @@ def run_blind_denoising(
     the CUDA card, which raises where there is none).
 
     Frames ``first`` .. ``last`` are read by a pool of two threads, up to
-    ``K`` frames ahead; frame i (from ``first + 1``) is fine-tuned against
+    ``K`` frames ahead. Where ``g++`` is on the PATH
+    (``io/native.available``), PGM frames, and PNG frames where the native
+    library was built against libpng (``io/native.has_png``), are decoded
+    (with their ``.flo`` flows) by the native prefetch ring
+    (``io/native.py``), which the pool's threads read from; other frames
+    (TIFF; PNG without libpng; every format on a host without ``g++``) by
+    the Python readers. A failed build or open of the ring raises; ``results["loader"]`` says which loader ran ("native" or
+    "python"). Frame i (from ``first + 1``) is fine-tuned against
     frame i - 1 with flow i (cur -> prev coordinates) and denoised. Flows
     come from ``flow_tmpl`` (``.flo``) unless ``compute_flow`` is set or no
     template is given; then TV-L1 with ``DENOISING_PARAMS`` updated by
@@ -448,11 +455,13 @@ def run_blind_denoising(
     one line a frame to ``output_psnr``, and the engine's parameters,
     optimizer state and running statistics to ``output_network`` (flax
     msgpack, ``models.serialization.save_train_state``). Returns
-    ``{"psnr": [...], "loss": [(iters,) arrays], "frames": [...]}``."""
+    ``{"psnr": [...], "loss": [(iters,) arrays], "frames": [...],
+    "loader": ...}``."""
     from ..flow.tvl1 import DENOISING_PARAMS, make_batched_tvl1, \
         make_tvl1_solver
     from ..io.flo import read_flo
-    from ..io.image import is_tiff, read_frame, write_gray
+    from ..io import native as native_io
+    from ..io.image import is_pgm, is_tiff, read_frame, write_gray
     from ..models.dncnn import opt_state_to_jax
     from ..models.serialization import save_train_state
     from ..utils.metrics import psnr as psnr_fn
@@ -496,13 +505,31 @@ def run_blind_denoising(
             flow = read_flo(flow_tmpl % i).astype(np.float32)
         return arr, flow
 
+    def path(i):
+        return input_tmpl % i if "%" in input_tmpl else input_tmpl
+
+    ring = None
+    if native_io.available() and (
+            is_pgm(path(first)) or (path(first).lower().endswith(".png")
+                                    and native_io.has_png())):
+        ring = native_io.NativePrefetcher(
+            [path(i) for i in range(first, last + 1)],
+            [None] + [None if compute else flow_tmpl % i
+                      for i in range(first + 1, last + 1)],
+            capacity=4, nthreads=2)
+
+    def load_ring(i):
+        """``load``'s frame and flow, decoded by the ring."""
+        frame, flow = ring.get(i - first)
+        return frame[..., None] / np.float32(255.0), flow
+
     pool = ThreadPoolExecutor(max_workers=2)
     futures, frames = {}, {}
     flow_cache = {}
 
     def ensure(j):
         if first <= j <= last and j not in futures and j not in frames:
-            futures[j] = pool.submit(load, j)
+            futures[j] = pool.submit(load if ring is None else load_ring, j)
 
     def frame(j):
         """(tensor on the device, flow read from its file, host array)."""
@@ -534,7 +561,8 @@ def run_blind_denoising(
                 flow_cache[i] = solver(c[..., 0] * 255.0, p[..., 0] * 255.0)
         return flow_cache.pop(i)
 
-    results = {"psnr": [], "loss": [], "frames": []}
+    results = {"psnr": [], "loss": [], "frames": [],
+               "loader": "python" if ring is None else "native"}
     psnr_lines = []
     try:
         for j in range(first, min(first + K, last) + 1):
@@ -566,6 +594,8 @@ def run_blind_denoising(
         pool.shutdown(wait=True, cancel_futures=True)
         if async_flow is not None:
             async_flow.close()
+        if ring is not None:
+            ring.close()
 
     if output_psnr and psnr_lines:
         with open(output_psnr, "w") as f:

@@ -28,6 +28,9 @@ class TrainState:
     opt_state: torch.optim.Optimizer
     residual: bool = True  # model returns denoised image directly
     step: int = 0
+    # parallel.data.DataParallel: the training forward split over a data
+    # mesh (train/trainer.py), or None for one device
+    data_parallel: Any = None
 
     def replace(self, **kw):
         return replace(self, **kw)
@@ -72,11 +75,15 @@ def make_train_apply(state: TrainState, captured: dict):
     forward records the moved BatchNorm buffers (clones, on the module's
     device) into ``captured["buffers"]`` and gives the module its own back
     (``models._train_forward``): the last call wins, as in the JAX
-    package."""
+    package. With ``state.data_parallel`` a training forward runs split
+    over its data mesh, with the whole batch's BatchNorm statistics; an
+    eval forward runs on the module (its rows are independent)."""
     model = state.model
 
     def apply_fn(x, train=True):
-        if train:
+        if train and state.data_parallel is not None:
+            out, captured["buffers"] = state.data_parallel(x)
+        elif train:
             out, captured["buffers"] = _train_forward(
                 model, x, {}, lambda: [b.clone() for b in model.buffers()])
         else:

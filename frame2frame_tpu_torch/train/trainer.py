@@ -16,6 +16,9 @@ from ..config import Config, optional
 from ..data import sets
 from ..models import load_model
 from ..models.serialization import save_variables
+from ..ops.fused_spatial import as_device
+from ..parallel.data import DataParallel
+from ..parallel.mesh import data_parallel_mesh
 from ..utils.device import resolve_device
 from .lit import TrainModule
 from .schedules import make_optimizer
@@ -66,9 +69,10 @@ class CSVLogger:
             f.write(",".join(str(row.get(k, "")) for k in self._keys) + "\n")
 
 
-def run(cfg, device=None):
-    """Train a model per config on ``device`` (None: the CUDA card, and
-    raises where there is none); returns a results Config.
+def run(cfg, device=None, devices=None):
+    """Train a model per config on ``device`` (None: the first of
+    ``devices``, else the CUDA card, and raises where there is none);
+    returns a results Config.
 
     Config keys: model (net_name/channels/...), data (dname/...), lit
     (crit_name/nepochs/lr_init/...), plus: checkpoint_dir, seed,
@@ -80,11 +84,32 @@ def run(cfg, device=None):
     so an epoch schedule runs slower than its name says); the port keeps it
     so that it trains as JAX does at every batch size. Each step draws from
     one ``torch.Generator`` on the device seeded with ``seed``, where JAX
-    splits a PRNG key. The JAX package's ``data_parallel`` mesh is a no-op
-    on one device; here the step runs on ``device`` alone.
+    splits a PRNG key.
+
+    Data parallelism, as in the JAX package: with ``data_parallel`` (True
+    by default) each batch's training forward is split over
+    ``data_parallel_mesh(batch_size, devices)`` with the whole batch's
+    BatchNorm statistics (``parallel/data.py``), so that a step is the
+    single-device step. ``devices`` default to ``device`` alone, so that
+    the mesh engages only where the caller names its devices: on an H100
+    the split step took longer than the whole batch on one card (ROADMAP,
+    Queue 3), and the whole batch fits there. A repeated device runs its
+    shards one after another; the mesh must start on ``device``. Where the
+    mesh is None (one device, a batch of one, or no divisor of the batch
+    size above 1) the step runs on ``device``; ``state.data_parallel`` in
+    the results holds the mesh, or None.
     """
     cfg = Config(cfg)
-    device = resolve_device(device)
+    if device is None and devices is not None:
+        device = devices[0]
+    device = as_device(resolve_device(device))
+    mesh = None
+    if optional(cfg, "data_parallel", True):
+        mesh = data_parallel_mesh(optional(cfg, "batch_size", 1),
+                                  [device] if devices is None else devices)
+        if mesh is not None and mesh.first != device:
+            raise ValueError(f"the data mesh starts on {mesh.first}, the "
+                             f"model lives on {device}")
     key = torch.Generator(device).manual_seed(optional(cfg, "seed", 123))
 
     ms = load_model(cfg, device=device)
@@ -97,6 +122,8 @@ def run(cfg, device=None):
     spe = max(len(data.tr), 1)
     tx, sched = make_optimizer(module.cfg, steps_per_epoch=spe)
     state = TrainState.create(ms.model, ms.variables, tx, residual=residual)
+    if mesh is not None:
+        state = state.replace(data_parallel=DataParallel(ms.model, mesh))
 
     ckpt_dir = Path(optional(cfg, "checkpoint_dir", "./output/checkpoints"))
     uuid = optional(cfg, "uuid", "default")

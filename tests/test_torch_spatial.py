@@ -212,7 +212,8 @@ assert not bad, bad
     assert res.returncode == 0, res.stderr
     files = sorted((REPO / "frame2frame_tpu_torch" / "parallel").glob("*.py"))
     files.append(REPO / "frame2frame_tpu_torch" / "ops" / "fused_spatial.py")
-    assert len(files) == 3
+    # __init__, data, mesh, shard, spatial and ops/fused_spatial.py
+    assert len(files) == 6
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
             if isinstance(node, (ast.Import, ast.ImportFrom)):
