@@ -73,7 +73,8 @@ evaluation (``eval.test.run``).
 - utils:   device resolution, PSNR / SSIM / ST-RRED (``metrics``), stage
            timers and CUDA-event timing (``timer``), device memory meters
            (``mem``), seeds, slices and pickles (``misc``), ``--profile``'s
-           trace, named regions and memory snapshot (``profiling``)
+           trace, the program's spans and counters and the memory
+           snapshot (``profiling``)
 """
 
 __version__ = "0.9.0"

@@ -54,8 +54,10 @@ def build_parser():
                         help="checkpoint every N layers during fine-tune "
                         "(-1 = auto: 2 for frames >= ~1MP, else off)")
     parser.add_argument("--profile", type=str, default="",
-                        help="write a torch.profiler Chrome trace into this "
-                        "directory and a CUDA memory snapshot next to it")
+                        help="write a torch.profiler Chrome trace "
+                        "(trace.json), the program's spans and counters "
+                        "(spans.json) and a CUDA memory snapshot into this "
+                        "directory")
     return parser
 
 

@@ -17,11 +17,14 @@ device takes the module's own forward.
 
 from __future__ import annotations
 
+import itertools
+
 import numpy as np
 import torch
 
 from ..config import Config, extract_pairs, optional
 from ..utils.device import memory_budget, resolve_device
+from ..utils.profiling import annotate, count
 from . import dncnn, fastdvdnet
 from .dncnn import DnCNN, init_dncnn, load_torch_checkpoint
 from .fastdvdnet import FastDVDnet, FastDVDnetVideo, init_fastdvdnet
@@ -64,7 +67,11 @@ def load_model(cfg, device=None):
     ["batch_stats"]`` returns them; the module's own statistics are left as
     they were. ``vid``: frames (B, H, W, C) for DnCNN, a video (B, T, H, W,
     C) for FastDVDnet (``kw``: ``noise_map``, ``sigma``); numpy arrays or
-    tensors."""
+    tensors. Spans (``utils.profiling``): ``serve.apply``, its id the call's
+    number, around ``serve.upload`` (``vid`` and the keyword arrays made
+    tensors on the device), ``serve.route`` (the eval route's choice) and
+    ``serve.forward``; the counters ``serve.route.fused`` and
+    ``serve.route.module`` count the eval calls each route took."""
     cfg = extract_model_config(cfg)
     mtype = optional(cfg, "net_name", "dncnn")
     dtype = model_dtype(cfg.model_dtype)
@@ -90,18 +97,28 @@ def load_model(cfg, device=None):
     def tensor(x):
         return torch.as_tensor(x, dtype=torch.float32, device=device)
 
+    calls = itertools.count(1)
+
     def apply(vid, train=False, **kw):
-        x = tensor(vid)
-        kw = {k: tensor(v) if isinstance(v, (np.ndarray, torch.Tensor)) else v
-              for k, v in kw.items()}
-        if train:
-            return _train_apply(model, arch, x, kw)
-        with torch.no_grad():
-            if (mtype == "dncnn" and not kw and device.type == "cuda"
-                    and can_fuse_batch(model, tuple(x.shape),
-                                       memory_budget(device))):
-                return fused_eval_apply_batch(model, x)
-            return model(x, **kw)
+        with annotate("serve.apply", next(calls)):
+            with annotate("serve.upload"):
+                x = tensor(vid)
+                kw = {k: tensor(v) if isinstance(v, (np.ndarray, torch.Tensor))
+                      else v for k, v in kw.items()}
+            if train:
+                with annotate("serve.forward"):
+                    return _train_apply(model, arch, x, kw)
+            with torch.no_grad():
+                with annotate("serve.route"):
+                    fused = (mtype == "dncnn" and not kw
+                             and device.type == "cuda"
+                             and can_fuse_batch(model, tuple(x.shape),
+                                                memory_budget(device)))
+                count("serve.route.fused" if fused else "serve.route.module")
+                with annotate("serve.forward"):
+                    if fused:
+                        return fused_eval_apply_batch(model, x)
+                    return model(x, **kw)
 
     return Config(model=model, variables=variables, apply=apply, cfg=cfg,
                   video_model=mtype in FASTDVD_NAMES)

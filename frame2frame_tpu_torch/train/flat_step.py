@@ -32,6 +32,7 @@ from ..models.dncnn import JaxRavel
 from ..models.fused_apply import can_fuse, update_running_stats
 from ..ops import fused_ends as fe
 from ..ops import fused_stack as fs
+from ..utils.profiling import annotate
 
 
 def _layer_functions(mma_bf16=None, kernel_forward=False):
@@ -171,21 +172,27 @@ def run_flat_scan(model, tx, iters, opt_state, cur, mask, target, flat=None):
     loss. cur, mask, target: (H, W, 1) f32. ``model``'s parameters and
     running statistics (biased batch variance, momentum 0.9) are updated in
     place; returns (opt_state, losses (iters,), one before each update).
-    ``flat``: the model's ``JaxRavel``, where the caller keeps one."""
+    ``flat``: the model's ``JaxRavel``, where the caller keeps one. Spans:
+    ``online.prep``, then one ``online.iter`` an update around
+    ``online.forward``, ``online.backward`` and ``online.update``, the
+    names of ``train/online.make_online_step``'s other route."""
     flat = flat or JaxRavel(model)
     mids = [model.mid(i) for i in range(model.nmid)]
-    with torch.no_grad():
+    with annotate("online.prep"), torch.no_grad():
         data = prep_frame(cur, mask, target)
     losses = []
     for _ in range(iters):
-        with torch.enable_grad():
-            loss, means, vars_ = flat_net_loss(diff_of(model), data)
-        loss.backward()
-        update_running_stats(mids, means, vars_)
-        updates, opt_state = tx.update(flat.ravel(grads=True), opt_state,
-                                       flat.ravel())
-        for p in flat.params:
-            p.grad = None
-        flat.add(updates)
-        losses.append(loss.detach())
+        with annotate("online.iter"):
+            with annotate("online.forward"), torch.enable_grad():
+                loss, means, vars_ = flat_net_loss(diff_of(model), data)
+            with annotate("online.backward"):
+                loss.backward()
+            with annotate("online.update"):
+                update_running_stats(mids, means, vars_)
+                updates, opt_state = tx.update(flat.ravel(grads=True),
+                                               opt_state, flat.ravel())
+                for p in flat.params:
+                    p.grad = None
+                flat.add(updates)
+                losses.append(loss.detach())
     return opt_state, torch.stack(losses)

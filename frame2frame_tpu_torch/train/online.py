@@ -45,6 +45,7 @@ from ..models.fused_apply import (
 from ..ops.warp import bilinear_warp_with_mask, occlusion_mask
 from ..utils.device import memory_budget as _memory_budget
 from ..utils.device import resolve_device
+from ..utils.profiling import annotate, count
 from .flat_step import eligible, run_flat_scan
 
 BATCH_ROUTES = ("stacked", "perframe")
@@ -193,31 +194,37 @@ def make_online_step(model, tx, iters=20, residual_model=False,
         return ok
 
     def step(opt_state, cur, prev, flow, eval_impl=None):
-        with torch.no_grad():
+        with annotate("online.warp"), torch.no_grad():
             warped, mask = bilinear_warp_with_mask(prev, flow)
             mask = occlusion_mask(flow, mask)
             target = mask * warped
         if use_flat_step(cur.shape):
+            count("online.route.flat")
             opt_state, losses = run_flat_scan(model, tx, iters, opt_state,
                                               cur, mask, target, flat=flat)
+        else:
+            count("online.route.iter")
+            losses = []
+            for _ in range(iters):
+                with annotate("online.iter"):
+                    with annotate("online.forward"), torch.enable_grad():
+                        deno = denoise(cur, train=True)
+                        # summed L1 (nn.L1Loss(size_average=False),
+                        # blind_denoising.py:47)
+                        loss = (mask * deno - target).abs().sum()
+                    with annotate("online.backward"):
+                        loss.backward()
+                    with annotate("online.update"):
+                        updates, opt_state = tx.update(
+                            flat.ravel(grads=True), opt_state, flat.ravel())
+                        for p in flat.params:
+                            p.grad = None
+                        flat.add(updates)
+                        losses.append(loss.detach())
+            losses = torch.stack(losses)
+        with annotate("online.denoise"):
             deno = denoise(cur, train=False, eval_impl=eval_impl)
-            return opt_state, deno, losses
-        losses = []
-        for _ in range(iters):
-            with torch.enable_grad():
-                deno = denoise(cur, train=True)
-                # summed L1 (nn.L1Loss(size_average=False),
-                # blind_denoising.py:47)
-                loss = (mask * deno - target).abs().sum()
-            loss.backward()
-            updates, opt_state = tx.update(flat.ravel(grads=True), opt_state,
-                                           flat.ravel())
-            for p in flat.params:
-                p.grad = None
-            flat.add(updates)
-            losses.append(loss.detach())
-        deno = denoise(cur, train=False, eval_impl=eval_impl)
-        return opt_state, deno, torch.stack(losses)
+        return opt_state, deno, losses
 
     return step
 
@@ -245,7 +252,14 @@ class AsyncFlowSolver:
     raises where there is none, ``"cpu"`` solves on the host with the plain
     version of the inner loop. ``solve_times`` holds what each solve took in
     seconds by the worker's clock, from the frames' upload to the end of the
-    solve on the worker's stream."""
+    solve on the worker's stream.
+
+    Spans (``utils.profiling``), each with the solve's index as its id: on
+    the worker's thread ``flow.solve``, around ``flow.prep`` (the frames
+    scaled and uploaded), ``flow.record`` (the first solve on a card),
+    ``flow.replay`` (the graph's replay, the flow's copy, the event) and
+    ``flow.wait`` (the worker waiting for its stream); on the caller's
+    ``flow.result``, in ``get``."""
 
     def __init__(self, W, H, params, lookahead=3, device=None):
         from ..flow.tvl1 import make_tvl1_solver
@@ -271,30 +285,42 @@ class AsyncFlowSolver:
         with torch.cuda.graph(self._graph, capture_error_mode="thread_local"):
             self._flow = self._solve(*self._frames)
 
-    def _work(self, cur_np, prev_np):
+    def _work(self, i, cur_np, prev_np):
+        with annotate("flow.solve", i):
+            return self._solve_one(cur_np, prev_np)
+
+    def _solve_one(self, cur_np, prev_np):
         t0 = time.perf_counter()
-        cur = np.asarray(cur_np)[..., 0] * 255.0
-        prev = np.asarray(prev_np)[..., 0] * 255.0
         if not self._cuda:
+            with annotate("flow.prep"):
+                cur = np.asarray(cur_np)[..., 0] * 255.0
+                prev = np.asarray(prev_np)[..., 0] * 255.0
             flow = self._solve(cur, prev)
             self.solve_times.append(time.perf_counter() - t0)
             return flow, None
         # the current device and the current stream are per thread
         with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
+            with annotate("flow.prep"):
+                cur = np.asarray(cur_np)[..., 0] * 255.0
+                prev = np.asarray(prev_np)[..., 0] * 255.0
+                if self._graph is None:
+                    self._frames = torch.empty(2, *cur.shape,
+                                               dtype=torch.float32,
+                                               device=self.device)
+                self._frames[0].copy_(torch.from_numpy(cur))
+                self._frames[1].copy_(torch.from_numpy(prev))
             if self._graph is None:
-                self._frames = torch.empty(2, *cur.shape, dtype=torch.float32,
-                                           device=self.device)
-            self._frames[0].copy_(torch.from_numpy(cur))
-            self._frames[1].copy_(torch.from_numpy(prev))
-            if self._graph is None:
-                self._record()
+                with annotate("flow.record"):
+                    self._record()
             # every solve runs on the one stream, in order: the replay
             # starts after the solve before it has been copied out
-            self._graph.replay()
-            flow = self._flow.clone()
-            done = torch.cuda.Event()
-            done.record(self._stream)
-            self._stream.synchronize()
+            with annotate("flow.replay"):
+                self._graph.replay()
+                flow = self._flow.clone()
+                done = torch.cuda.Event()
+                done.record(self._stream)
+            with annotate("flow.wait"):
+                self._stream.synchronize()
         self.solve_times.append(time.perf_counter() - t0)
         return flow, done
 
@@ -302,16 +328,17 @@ class AsyncFlowSolver:
         """Schedule flow i (cur -> prev coords) if not already in flight.
         cur_np, prev_np: (H, W, C) frames in [0, 1]; channel 0 is solved."""
         if i not in self._futs:
-            self._futs[i] = self._pool.submit(self._work, cur_np, prev_np)
+            self._futs[i] = self._pool.submit(self._work, i, cur_np, prev_np)
 
     def get(self, i):
         """Flow i as an (H, W, 2) tensor on the solver's device, ordered
         after its solve on the caller's current stream."""
-        flow, done = self._futs.pop(i).result()
-        if done is not None:
-            stream = torch.cuda.current_stream(self.device)
-            stream.wait_event(done)
-            flow.record_stream(stream)
+        with annotate("flow.result", i):
+            flow, done = self._futs.pop(i).result()
+            if done is not None:
+                stream = torch.cuda.current_stream(self.device)
+                stream.wait_event(done)
+                flow.record_stream(stream)
         return flow
 
     def close(self):
@@ -333,6 +360,12 @@ class OnlineDenoiser:
     ``flat_step``: the fine-tune's route, as ``make_online_step`` takes it;
     ``device``: None means the CUDA card, and raises where there is none.
     The optimizer state ``opt_state`` persists across frames.
+
+    Spans (``utils.profiling``): ``process_frame`` is ``online.frame``, its
+    id the engine's count of frames, around the step's ``online.warp`` (the
+    warp, the occlusion mask and the target), the flat route's
+    ``online.prep``, one ``online.iter`` an update (``online.forward``,
+    ``online.backward``, ``online.update``) and ``online.denoise``.
     """
 
     def __init__(self, model, variables, lr=5e-5, weight_decay=1e-5, iters=20,
@@ -354,6 +387,7 @@ class OnlineDenoiser:
         self._step = make_online_step(self.model, self.tx, iters=iters,
                                       residual_model=residual_model,
                                       flat_step=flat_step)
+        self._frames = 0
 
     def _tensor(self, x):
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
@@ -362,9 +396,11 @@ class OnlineDenoiser:
         """Fine-tune on (cur, prev, flow) and return (deno, losses): the
         eval-mode denoise of ``cur`` with the updated weights, and the
         ``iters`` losses, one before each update."""
-        self.opt_state, deno, losses = self._step(
-            self.opt_state, self._tensor(cur), self._tensor(prev),
-            self._tensor(flow), self.eval_impl)
+        self._frames += 1
+        with annotate("online.frame", self._frames):
+            self.opt_state, deno, losses = self._step(
+                self.opt_state, self._tensor(cur), self._tensor(prev),
+                self._tensor(flow), self.eval_impl)
         return deno, losses
 
     def denoise_only(self, cur):

@@ -6,8 +6,7 @@
 - ``utils``: ``ExpTimer`` / ``TimeIt``, ``GpuMemer`` / ``MemIt`` and
   ``device_mem_gb`` (zeros on the CPU, raising without a card), ``set_seed``,
   ``rslice``, ``get_region_gt``, ``slice_flows``, the pickles,
-  ``profiling.annotate`` and ``peak_device_memory_mb``, the packages'
-  re-exports;
+  ``profiling.annotate``, the packages' re-exports;
 - ``data.run_rand_crop``: the same crop from the same seed;
 - ``io.video``: ``save_video`` -> ``load_video_dir`` / ``load_video_frames``
   in PGM, equal to the JAX package's readers;
@@ -125,7 +124,6 @@ def test_memory_meters_on_the_cpu():
                  lambda: tutils.print_peak_gpu_stats(True, "x")):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
-    assert profiling.peak_device_memory_mb() == {}
 
 
 def test_profiling_annotate_names_a_region():
