@@ -929,6 +929,100 @@ def train_kernel_phase(torch, F, fs, cuda_time_ms):
     return rows
 
 
+# bwd_layer_phase: frames and crops the backward body runs at (B, H, W);
+# slabs of H-split frames (hf, wf, D, k) as WINDOW_CASES
+BWD_BODY_SHAPES = (("540p", (1, H, W)), ("1080p", (1, 2 * H, 2 * W)),
+                   ("B=4 540p", (4, H, W)), ("13x20", (3, 13, 20)),
+                   ("96x128", (2, 96, 128)))
+BWD_BODY_SLABS = ((1080, 1920, 2, 1), (540, 960, 4, 2), (540, 960, 4, 3))
+
+
+def bwd_layer_phase(torch, fs, variables, model, cuda_time_ms):
+    """The mid layers' backward body (``csrc/fused_stack_bwd.cu``: wgmma fed
+    by a TMA ring) against its plain version with the kernel's operand
+    rounding: at 540p and 1080p, at B = 4, on ragged crops and on the slabs
+    of H-split frames, ``first_layer`` both ways, on the bf16 chain and (the
+    crops and 540p) the f32 chain; two launches on the same inputs give the
+    same bits; and over one flat fine-tune step under a profiler the
+    recorder's ``kernel.bwd_layer.wgmma`` counts every ``bwd_layer``
+    launch. Returns the CUDA-event ms a bf16 launch by case."""
+    from frame2frame_tpu_torch.ops.fused_spatial import _valid_bounds, pad_h
+    from frame2frame_tpu_torch.train.online import OnlineDenoiser
+    from frame2frame_tpu_torch.utils import profiling
+
+    rng = np.random.default_rng(22)
+    w = torch.from_numpy((rng.standard_normal((3, 3, FEAT, FEAT))
+                          * np.sqrt(2.0 / (9 * FEAT))).astype(np.float32)).cuda()
+    wk = fs.kernel_weights(w)
+    cases = [(tag, shape, None) for tag, shape in BWD_BODY_SHAPES]
+    for hf, wf, D, k in BWD_BODY_SLABS:
+        R = pad_h(hf, D) // D
+        cases.append((f"slab {k} of {hf}x{wf} D={D}", (1, R + 2, wf),
+                      _valid_bounds(k, R, hf)))
+    out = {}
+    for tag, shape, vb in cases:
+        small = shape[1] * shape[2] <= H * W
+        for dt in (torch.bfloat16, torch.float32) if small else (
+                torch.bfloat16,):
+            z_prev, z_i, g, vecs = train_inputs(torch, rng, shape, dt)
+            name = f"bwd_layer {tag} {str(dt).replace('torch.', '')}"
+            for first in (False, True):
+                got = fs.bwd_layer(g, z_i, z_prev, wk, vecs, first,
+                                   valid_bounds=vb)
+                again = fs.bwd_layer(g, z_i, z_prev, wk, vecs, first,
+                                     valid_bounds=vb)
+                torch.cuda.synchronize()
+                check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                      f"{name} first={first}: two launches on the same "
+                      "inputs differ")
+                ref = fs.bwd_layer_plain(g, z_i, z_prev, w, vecs, first,
+                                         mma_bf16=True, valid_bounds=vb)
+                what = f"{name} first={first}"
+                hold_close(what, "da", got[0], ref[0], KERNEL_RTOL)
+                hold_close(what, "dW", got[1], ref[1], KERNEL_RTOL)
+                for k, part in enumerate(("sum_gp", "sum_gp_zhat")):
+                    hold_close(what, part, got[2][k], ref[2][k],
+                               KERNEL_RTOL)
+                del got, again, ref
+            if dt == torch.bfloat16:
+                out[tag] = cuda_time_ms(
+                    lambda: fs.bwd_layer(g, z_i, z_prev, wk, vecs, False,
+                                         valid_bounds=vb),
+                    head_start_cycles=HEAD_START_CYCLES)
+                print(f"{name}: held, bit-equal twice, ms {out[tag]:.4f}",
+                      flush=True)
+            del z_prev, z_i, g
+        torch.cuda.empty_cache()
+
+    # one flat fine-tune step under a profiler: the recorder counts the
+    # wgmma body at every launch
+    dev = torch.device("cuda")
+    _, noisy, flows = moving_frames(2)
+    frames = torch.from_numpy(noisy).to(dev)
+    eng = OnlineDenoiser(model, variables, iters=ITERS, residual_model=True)
+    before = fs.bwd_layer.launches
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts):
+        profiling.clear()
+        eng.process_frame(frames[1], frames[0],
+                          torch.from_numpy(flows[1]).to(dev))
+        torch.cuda.synchronize()
+        counters = profiling.recorded()["counters"]
+    profiling.clear()
+    launches = fs.bwd_layer.launches - before
+    counted = counters.get(fs.BWD_BODY_COUNTER, 0)
+    check(launches == NMID * ITERS and counted == launches,
+          f"flat step: {launches} bwd_layer launches, the recorder counted "
+          f"{counted} on the wgmma body")
+    print(f"bwd_layer body: kernel.bwd_layer.wgmma {counted} = "
+          f"bwd_layer.launches {launches} over a flat step", flush=True)
+    out["flat_step_counted"] = counted
+    del eng, frames
+    torch.cuda.empty_cache()
+    return out
+
+
 def ends_inputs(torch, rng, h, wd, dt):
     """Inputs of the four end kernels for one (h, wd) frame on a ``dt``
     chain: the frame and its loss constants, z_L and da0, and the last
@@ -4993,6 +5087,10 @@ def main():
             torch, fs, psnr)
         train_launches, flat_launches, training = training_phase(
             torch, fs, psnr, variables, model)
+        t0 = time.perf_counter()
+        bwd_body = bwd_layer_phase(torch, fs, variables, model, cuda_time_ms)
+        print(f"phase time: bwd_layer body {time.perf_counter() - t0:.1f} s",
+              flush=True)
         flow_launches, flow = flow_path_phase(
             torch, fs, psnr, variables, model, training)
         flow["farneback"] = farneback_phase(torch, fs)
@@ -5099,7 +5197,7 @@ def main():
                       "spatial": spatial, "registry": registry,
                       "adapt": adapt, "offline": offline, "shard": shard,
                       "eval": evaluation, "launcher": launcher,
-                      "model_dtype": dtype_out}))
+                      "model_dtype": dtype_out, "bwd_body": bwd_body}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

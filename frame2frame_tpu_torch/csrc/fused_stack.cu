@@ -113,8 +113,6 @@
 
 #include "conv3x3_c64.cuh"
 
-#include <cuda.h>  // CUtensorMap; the encoder comes through the runtime
-
 #include <type_traits>
 
 namespace {
@@ -172,78 +170,7 @@ struct FwdArgs {
   int slo, shi;                 // rows that EPI_STATS sums
 };
 
-// --- mbarriers, named barriers ---------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile(
-      "{\n.reg .b64 state;\n"
-      "mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-// The box of `map` at coordinates (c0, c1, c2, c3) into shared memory at
-// dst; its bytes complete a transaction of bar. Out-of-range elements are
-// zeros.
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void named_sync(int id, int count) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
-}
-
 // --- wgmma -----------------------------------------------------------------
-
-// Descriptor of a K-major operand tile in the 128-byte swizzle: rows of 128
-// bytes, 8-row atoms 1024 bytes apart (SBO), the atoms 1024-byte aligned.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr) {
-  return (uint64_t)((saddr & 0x3FFFF) >> 4) | (1ull << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
 
 // Keeps the compiler from moving accesses of the accumulators across a
 // wgmma fence or wait.
@@ -252,44 +179,6 @@ __device__ __forceinline__ void fence_acc(float (&d)[RPW][32]) {
   for (int j = 0; j < RPW; ++j)
 #pragma unroll
     for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[j][i])::"memory");
-}
-
-// d (64 x 64 f32) += A (64 x 16 bf16, registers) * B (16 x 64 bf16, K-major
-// in shared memory, descriptor). Each warp of the warpgroup gives A's rows
-// 16 w .. 16 w + 15 in the fragment layout of mma.sync.m16n8k16's A, and
-// holds the same rows of d in the layout of its C, n8 tile after n8 tile.
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
-                                         uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "n"(1));
-}
-
-// Four 8 x 8 b16 matrices to shared memory from the fragment layout of
-// mma.sync's C (register k: row lane / 4, columns 2 (lane % 4) + 0, 1 of
-// matrix k); lane l gives the address of row l % 8 of matrix l / 8.
-__device__ __forceinline__ void stsm_x4(uint32_t addr, uint32_t r0, uint32_t r1,
-                                        uint32_t r2, uint32_t r3) {
-  asm volatile(
-      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(
-          addr),
-      "r"(r0), "r"(r1), "r"(r2), "r"(r3)
-      : "memory");
-}
-
-__device__ __forceinline__ uint32_t bf16x2(float a, float b) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<const uint32_t*>(&h);
 }
 
 // The box of `map` at (c0, c1, c2, c3) from shared memory at src to global
@@ -552,7 +441,7 @@ conv3x3_fwd(const FwdArgs<T> a, const __grid_constant__ CUtensorMap map,
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   // the weights are read by the tensor cores through the async proxy
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  fence_async_shared();
   __syncthreads();
 
   // the block's tiles: blockIdx.x + i * gridDim.x, i = 0 .. n - 1 (the
@@ -627,7 +516,7 @@ conv3x3_fwd(const FwdArgs<T> a, const __grid_constant__ CUtensorMap map,
       convert_f32<PRO>(hs, land, vs, tl, a.lo, a.hi, W, ct);
       named_sync(1 + wg, 128);
       // the landing zone's next writer is the TMA engine (the async proxy)
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      fence_async_shared();
       if (ct == 0) mbar_arrive(converted);
     }
 
@@ -640,7 +529,7 @@ conv3x3_fwd(const FwdArgs<T> a, const __grid_constant__ CUtensorMap map,
         acc, (uint32_t)__cvta_generic_to_shared(hs), smem_s, wq, lane, [&] {
           if constexpr (BF16) {
             // the stage's next writer is the TMA engine (the async proxy)
-            asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+            fence_async_shared();
             __syncwarp();
             if (lane == 0) mbar_arrive(empty0 + 8 * st);
           }
@@ -694,7 +583,7 @@ conv3x3_fwd(const FwdArgs<T> a, const __grid_constant__ CUtensorMap map,
                   bf16x2(acc[j][4 * n8 + 4], acc[j][4 * n8 + 5]),
                   bf16x2(acc[j][4 * n8 + 6], acc[j][4 * n8 + 7]));
       }
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      fence_async_shared();
       named_sync(1 + wg, 128);
       if (ct == 0) tma_store_4d(&omap, o_s, 0, tl.x0, tl.y0, tl.bi);
     } else {
@@ -745,65 +634,6 @@ conv3x3_fwd(const FwdArgs<T> a, const __grid_constant__ CUtensorMap map,
       a.partial[((size_t)blockIdx.x * 2 + k) * C + ch] = sum;
     }
   }
-}
-
-// cuTensorMapEncodeTiled, from the driver through the runtime (the library
-// links no -lcuda).
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled lookup_encoder() {
-  void* p = nullptr;
-  cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-  const cudaError_t e = cudaGetDriverEntryPointByVersion(
-      "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-  const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                                cudaEnableDefault, &q);
-#endif
-  return e == cudaSuccess && q == cudaDriverEntryPointSuccess
-             ? reinterpret_cast<EncodeTiled>(p)
-             : nullptr;
-}
-
-EncodeTiled encoder() {
-  static const EncodeTiled fn = lookup_encoder();  // once, thread-safe
-  return fn;
-}
-
-// The map of rows [lo, hi) of a (B, H, W, 64) tensor, bf16 or f32, with a
-// bh x bw pixel box: its row 0 is the tensor's row lo, and TMA fills the
-// rows outside the window with zeros. Encoded at every launch: two
-// encodings cost the host less than the measurement's spread around a
-// wrapper call (36.4 against 37.8 us with maps reused; chip_smoke.py,
-// NVIDIA H100 80GB HBM3, 700 W).
-int tensor_map(const void* ptr, bool f32, int B, int H, int W, int lo,
-               int hi, int bw, int bh, CUtensorMap* map) {
-  EncodeTiled enc = encoder();
-  if (enc == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t px = f32 ? C * 4 : C * 2;  // bytes a pixel
-  const cuuint64_t dims[4] = {C, (cuuint64_t)W, (cuuint64_t)(hi - lo),
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {px, (cuuint64_t)W * px,
-                                 (cuuint64_t)H * W * px};
-  const cuuint32_t box[4] = {C, (cuuint32_t)bw, (cuuint32_t)bh, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  // bf16 in the 128-byte swizzle; f32 (256 bytes a pixel) unswizzled
-  const CUresult r = enc(
-      map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-               : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-      4,
-      const_cast<char*>(static_cast<const char*>(ptr)) + (size_t)lo * W * px,
-      dims, strides, box, elem,
-      CU_TENSOR_MAP_INTERLEAVE_NONE,
-      f32 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 // Rows: the operand's window [lo, hi), the summed rows [slo, shi).

@@ -82,6 +82,7 @@ from ._common import (
     conv2d_weight,
 )
 from ..flow.tvl1_inner import tvl1_inner_loop
+from ..utils.profiling import count
 from .fused_ends import first_conv, first_dw, last_loss_bwd, last_loss_fwd
 from .conv3x3 import conv3x3_fwd
 from .conv_dw import dw_conv3x3
@@ -293,6 +294,13 @@ def bwd_layer_plain(g, z_i, z_prev, w, vecs, first_layer=False,
     return da.to(dt).contiguous(), dw, stats
 
 
+# the program recorder's counter of ``bwd_layer``'s launches, named after
+# the body they run: both chains run the wgmma body of
+# ``csrc/fused_stack_bwd.cu`` (the f32 chain rounds its MMA operands to bf16
+# in the prologue)
+BWD_BODY_COUNTER = "kernel.bwd_layer.wgmma"
+
+
 @functools.cache
 def _lib_bwd():
     lib = load("fused_stack_bwd")
@@ -347,7 +355,8 @@ def bwd_layer(g, z_i, z_prev, w, vecs, first_layer=False, valid_bounds=None):
     f32 = sum gp and sum gp * zhat_prev with gp = da_prev * [a_prev > 0],
     zeros when ``first_layer``). One call counts as one launch: one kernel
     computes all three, and one finishing sum adds its blocks' partial sums
-    of stats_prev and dW."""
+    of stats_prev and dW. A launch also adds one to ``BWD_BODY_COUNTER`` in
+    the program's recorder, which records while a profiler runs."""
     name = "bwd_layer"
     _checked(name, g, w, vecs[0], vecs[1])
     for x in (z_i, z_prev):
@@ -382,6 +391,7 @@ def bwd_layer(g, z_i, z_prev, w, vecs, first_layer=False, valid_bounds=None):
     rc = lib.f2f_bwd_layer_window(*args, *rows, stream)
     _raise_on(lib, name, rc)
     bwd_layer.launches += 1
+    count(BWD_BODY_COUNTER)
     return da, out[2 * C:].view(3, 3, C, C), out[:2 * C].view(2, C)
 
 
