@@ -2,7 +2,9 @@
 
 Counterpart of ``frame2frame_tpu/models/__init__.py``, the replacement for the
 reference dispatch (lib/frame2frame/__init__.py:19-39): ``net_name`` selects
-dncnn or fastdvdnet; ``extract_model_config`` collects the arch/io pairs
+dncnn or fastdvdnet, and in the port also ``"restormer"`` (``models/
+restormer.py``, which the JAX package does not have); ``extract_model_config``
+collects the arch/io pairs
 (lib/frame2frame/dncnn/io.py:68-80); ``load_model`` builds the model on a
 device, restores pretrained weights and returns ``apply``.
 
@@ -25,12 +27,20 @@ import torch
 from ..config import Config, extract_pairs, optional
 from ..utils.device import memory_budget, resolve_device
 from ..utils.profiling import annotate, count
-from . import dncnn, fastdvdnet
+from . import dncnn, fastdvdnet, restormer
 from .dncnn import DnCNN, init_dncnn, load_torch_checkpoint
 from .fastdvdnet import FastDVDnet, FastDVDnetVideo, init_fastdvdnet
 from .fused_apply import can_fuse_batch, fused_eval_apply_batch
+from .restormer import Restormer, init_restormer
 
 FASTDVD_NAMES = ("fastdvd", "fastdvdnet", "fdvdnet", "fdvd")
+# Restormer's widths, read from the config beside ``arch_pairs`` (which
+# match the JAX package's); the defaults are the published grey model's
+RESTORMER_WIDTHS = {
+    "dim": restormer.DIM, "num_blocks": restormer.NUM_BLOCKS,
+    "num_refinement_blocks": restormer.NUM_REFINEMENT_BLOCKS,
+    "heads": restormer.HEADS,
+    "ffn_expansion_factor": restormer.FFN_EXPANSION_FACTOR}
 
 
 def arch_pairs():
@@ -65,13 +75,19 @@ def load_model(cfg, device=None):
     training-mode output (differentiable in ``model``'s parameters) and the
     moved running statistics in the JAX layout, as ``mutable=
     ["batch_stats"]`` returns them; the module's own statistics are left as
-    they were. ``vid``: frames (B, H, W, C) for DnCNN, a video (B, T, H, W,
-    C) for FastDVDnet (``kw``: ``noise_map``, ``sigma``); numpy arrays or
+    they were. ``vid``: frames (B, H, W, C) for DnCNN and Restormer, a video
+    (B, T, H, W, C) for FastDVDnet (``kw``: ``noise_map``, ``sigma``); numpy
+    arrays or
     tensors. Spans (``utils.profiling``): ``serve.apply``, its id the call's
     number, around ``serve.upload`` (``vid`` and the keyword arrays made
     tensors on the device), ``serve.route`` (the eval route's choice) and
     ``serve.forward``; the counters ``serve.route.fused`` and
-    ``serve.route.module`` count the eval calls each route took."""
+    ``serve.route.module`` count the eval calls each route took.
+
+    ``net_name="restormer"`` also reads ``RESTORMER_WIDTHS``' keys from
+    ``cfg``, and its ``pretrained_path`` is an official checkpoint
+    (``restormer.load_checkpoint``)."""
+    widths = {k: optional(cfg, k, v) for k, v in RESTORMER_WIDTHS.items()}
     cfg = extract_model_config(cfg)
     mtype = optional(cfg, "net_name", "dncnn")
     dtype = model_dtype(cfg.model_dtype)
@@ -85,10 +101,17 @@ def load_model(cfg, device=None):
         model, variables = init_fastdvdnet(cfg.seed, channels=cfg.channels,
                                            dtype=dtype)
         arch = fastdvdnet
+    elif mtype == "restormer":
+        model, variables = init_restormer(cfg.seed, channels=cfg.channels,
+                                          dtype=dtype, **widths)
+        arch = restormer
     else:
         raise ValueError(f"Unknown model type [{mtype}]")
 
-    if cfg.pretrained_load and cfg.pretrained_path:
+    if cfg.pretrained_load and cfg.pretrained_path and arch is restormer:
+        restormer.load_checkpoint(model, cfg.pretrained_path)
+        variables = restormer.to_jax_variables(model)
+    elif cfg.pretrained_load and cfg.pretrained_path:
         variables = load_checkpoint(variables, cfg.pretrained_path,
                                     num_layers=cfg.num_of_layers)
         arch.load_jax_variables(model, variables)
@@ -134,12 +157,15 @@ def model_dtype(name):
 
 
 def arch_of(model):
-    """The module of ``model``'s architecture (``dncnn`` or ``fastdvdnet``),
-    which holds its JAX-tree converters."""
+    """The module of ``model``'s architecture (``dncnn``, ``fastdvdnet`` or
+    ``restormer``), which holds its variable-tree converters
+    (``to_jax_variables``, ``load_jax_variables``)."""
     if isinstance(model, DnCNN):
         return dncnn
     if isinstance(model, (FastDVDnet, FastDVDnetVideo)):
         return fastdvdnet
+    if isinstance(model, Restormer):
+        return restormer
     raise TypeError(f"no converters for {type(model).__name__}")
 
 

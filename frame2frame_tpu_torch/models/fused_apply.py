@@ -45,7 +45,7 @@ from ..ops.fused_spatial import (
     fused_mid_stack_spatial,
     pad_h,
 )
-from .dncnn import update_running_stats
+from .dncnn import DnCNN, update_running_stats
 
 EVAL_IMPLS = ("affine", "act-bf16", "act-f32")
 
@@ -241,9 +241,9 @@ def fused_eval_apply_batch(model, x, store_dtype=torch.bfloat16,
 def can_fuse(model):
     """The fused kernels cover 64-feature DnCNNs with a mid stack whose
     ``conv_impl`` is ``"fused"``, as in the JAX package; any other
-    ``conv_impl`` takes the module route."""
-    return (model.conv_impl == "fused" and model.features == 64
-            and model.num_layers >= 3)
+    ``conv_impl``, and any other model, takes the module route."""
+    return (isinstance(model, DnCNN) and model.conv_impl == "fused"
+            and model.features == 64 and model.num_layers >= 3)
 
 
 def can_fuse_batch(model, x_shape, budget_bytes, eval_impl=None):

@@ -47,6 +47,16 @@ class _Conv2d(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
+        stride, groups = ctx.conf
+        if groups > 1:
+            # dX and dW in one call from the input itself: for a grouped
+            # convolution PyTorch's own kernels copy out at full size the
+            # stand-in for the input that ``conv2d_input`` hands them
+            with _cudnn_f32():
+                dx, dw, _ = torch.ops.aten.convolution_backward(
+                    g, x, w, None, (stride, stride), (1, 1), (1, 1), False,
+                    (0, 0), groups, (*ctx.needs_input_grad[:2], False))
+            return dx, dw, None, None
         dx = dw = None
         if ctx.needs_input_grad[0]:
             dx = conv2d_input(x.shape, w, g, *ctx.conf)

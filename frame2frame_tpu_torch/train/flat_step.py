@@ -144,7 +144,7 @@ def eligible(model, x_shape, residual_model):
     ``x_shape`` (H, W, C): ``conv_impl="fused"`` (``can_fuse``, as the JAX
     package asks), 64 features and a mid stack, one channel, the standard
     residual convention (denoised = x - the conv stack's output), all
-    parameters on one device."""
+    parameters on one device; never for a model that is not a DnCNN."""
     if not can_fuse(model):
         return False
     if x_shape[-1] != 1 or model.channels != 1:

@@ -12,12 +12,13 @@ eligible, as the JAX package does on its accelerator, else the body that runs
 model whose ``conv_impl`` is not ``"fused"`` the body on the model's own
 forward (``models/dncnn.py``; the ``"pallas"``, ``"hybrid"``, ``"bf16res"``
 and ``"packed_bf16"`` routes run the kernels of ``ops/conv3x3.py`` and
-``ops/conv_dw.py``). The reference hot loop (blind_denoising.py:187-256) per
-frame: warp the previous noisy frame by the flow and mask occlusions, once;
-``iters`` Adam updates of the DnCNN in training mode on the summed masked L1
-loss; then the eval-mode denoise with the updated weights. PyTorch runs
-eagerly, so the JAX package's ``lax.scan`` is a Python loop here. The flow
-comes from ``.flo`` files, from ``AsyncFlowSolver`` (TV-L1,
+``ops/conv_dw.py``); any other registry model (a Restormer) takes the body
+on its own forward too. The reference hot loop (blind_denoising.py:187-256)
+per frame: warp the previous noisy frame by the flow and mask occlusions,
+once; ``iters`` Adam updates of the model in training mode on the summed
+masked L1 loss; then the eval-mode denoise with the updated weights.
+PyTorch runs eagerly, so the JAX package's ``lax.scan`` is a Python loop
+here. The flow comes from ``.flo`` files, from ``AsyncFlowSolver`` (TV-L1,
 ``flow/tvl1.py``), which solves ahead of the fine-tune on a CUDA stream of
 its own, or from the batched solver in line (``run_blind_denoising``).
 """
@@ -31,7 +32,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from ..models.dncnn import JaxRavel, load_jax_variables, to_jax_variables
+from ..models import arch_of
+from ..models.dncnn import DnCNN, JaxRavel
 from ..models.fused_apply import (
     _eval_impl,
     can_fuse,
@@ -45,7 +47,7 @@ from ..models.fused_apply import (
 from ..ops.warp import bilinear_warp_with_mask, occlusion_mask
 from ..utils.device import memory_budget as _memory_budget
 from ..utils.device import resolve_device
-from ..utils.profiling import annotate, count
+from ..utils.profiling import annotate, count, resolve_device_times
 from .flat_step import eligible, run_flat_scan
 
 BATCH_ROUTES = ("stacked", "perframe")
@@ -57,9 +59,10 @@ class torch_adam:
     package's ``torch_adam``.
 
     State: ``{"count": int, "m": (N,) f32, "v": (N,) f32}`` with ``m`` and
-    ``v`` in the JAX package's ``ravel_pytree`` order of the parameters
-    (``models.dncnn.JaxRavel``), so that the state crosses over
-    (``models.dncnn.opt_state_from_jax`` / ``opt_state_to_jax``). The bias
+    ``v`` in the order of ``raveler(model)``: for a DnCNN the JAX package's
+    ``ravel_pytree`` order of the parameters (``models.dncnn.JaxRavel``), so
+    that the state crosses over (``models.dncnn.opt_state_from_jax`` /
+    ``opt_state_to_jax``), for any other model the module's own. The bias
     corrections ``1 - beta ** count`` are taken in f32 and ``eps`` is added
     outside the square root."""
 
@@ -87,6 +90,35 @@ class torch_adam:
         vhat = v / float(np.float32(1) - np.float32(self.b2) ** c)
         u = (-self.lr) * (mhat / (torch.sqrt(vhat) + self.eps))
         return u, {"count": count, "m": m, "v": v}
+
+
+class ModuleRavel:
+    """``model``'s parameters as one f32 vector in the module's own order
+    (``parameters()``, each flattened as it is held), and back: the
+    optimizer's vector of a model that has no JAX tree. The interface of
+    ``models.dncnn.JaxRavel``."""
+
+    def __init__(self, model):
+        self.params = list(model.parameters())
+        self.sizes = [p.numel() for p in self.params]
+
+    def ravel(self, grads=False):
+        """The parameters, or their ``.grad``, raveled."""
+        return torch.cat([(p.grad if grads else p.detach()).reshape(-1)
+                          for p in self.params])
+
+    @torch.no_grad()
+    def add(self, flat):
+        """``param += update`` in place for every parameter, ``flat`` in
+        the order of ``ravel``."""
+        torch._foreach_add_(self.params, [u.view_as(p) for u, p in zip(
+            flat.split(self.sizes), self.params)])
+
+
+def raveler(model):
+    """The optimizer's view of ``model``'s parameters as one vector:
+    ``JaxRavel`` for a DnCNN, ``ModuleRavel`` for any other model."""
+    return JaxRavel(model) if isinstance(model, DnCNN) else ModuleRavel(model)
 
 
 def make_denoise(model, residual_model=False, spatial_mesh=None,
@@ -165,11 +197,13 @@ def make_online_step(model, tx, iters=20, residual_model=False,
     raises. The warp, the mask and the loss run on the whole frame.
     ``store_dtype``: the fused chain's dtype; the flat step runs the bf16
     chain only, so f32 takes the per-iteration body (``flat_step=True``
-    raises)."""
-    if flat_step and model.conv_impl != "fused":
+    raises). A model that is not a DnCNN takes the per-iteration body on
+    its own forward (``flat_step=True`` raises)."""
+    conv_impl = getattr(model, "conv_impl", None)
+    if flat_step and conv_impl != "fused":
         raise ValueError(
-            "flat_step=True, but the flat step runs only conv_impl='fused'; "
-            f"this model has conv_impl={model.conv_impl!r}")
+            "flat_step=True, but the flat step runs only a DnCNN with "
+            f"conv_impl='fused'; this model has conv_impl={conv_impl!r}")
     if flat_step and spatial_mesh is not None:
         raise ValueError("flat_step=True, but the flat step does not split "
                          "a frame: a spatial_mesh takes the per-iteration body")
@@ -178,7 +212,7 @@ def make_online_step(model, tx, iters=20, residual_model=False,
                          f"chain only, not {store_dtype}")
     denoise = make_denoise(model, residual_model=residual_model,
                            spatial_mesh=spatial_mesh, store_dtype=store_dtype)
-    flat = JaxRavel(model)
+    flat = raveler(model)
 
     def use_flat_step(x_shape):
         if (flat_step is False or spatial_mesh is not None
@@ -349,11 +383,13 @@ class AsyncFlowSolver:
 
 
 class OnlineDenoiser:
-    """Frame-by-frame denoiser holding one DnCNN on one device.
+    """Frame-by-frame denoiser holding one image model on one device.
 
-    ``model``: a ``DnCNN`` giving the architecture and output convention;
-    ``variables``: the JAX-layout ``{"params", "batch_stats"}`` tree whose
-    weights the engine serves (the caller's model is not modified);
+    ``model``: a registry model of one frame (a ``DnCNN`` or a
+    ``Restormer``) giving the architecture and output convention;
+    ``variables``: its ``{"params", "batch_stats"}`` tree
+    (``models.arch_of(model)``'s converters) whose weights the engine serves
+    (the caller's model is not modified);
     ``lr``, ``weight_decay``, ``iters``: the fine-tune's Adam and its updates
     per frame; ``batch_route``: default ``denoise_batch`` route, "stacked" or
     "perframe"; ``eval_impl``: "affine" (default), "act-bf16" or "act-f32";
@@ -365,7 +401,9 @@ class OnlineDenoiser:
     id the engine's count of frames, around the step's ``online.warp`` (the
     warp, the occlusion mask and the target), the flat route's
     ``online.prep``, one ``online.iter`` an update (``online.forward``,
-    ``online.backward``, ``online.update``) and ``online.denoise``.
+    ``online.backward``, ``online.update``) and ``online.denoise``. Each
+    frame first adds the device times that have completed to their counters
+    (``profiling.resolve_device_times``).
     """
 
     def __init__(self, model, variables, lr=5e-5, weight_decay=1e-5, iters=20,
@@ -375,10 +413,11 @@ class OnlineDenoiser:
             raise ValueError(f"batch_route must be one of {BATCH_ROUTES}")
         _eval_impl(eval_impl)
         self.device = resolve_device(device)
-        self.model = load_jax_variables(copy.deepcopy(model), variables)
+        self.model = arch_of(model).load_jax_variables(copy.deepcopy(model),
+                                                       variables)
         self.model = self.model.to(self.device).eval()
         self.tx = torch_adam(lr, weight_decay)
-        self.opt_state = self.tx.init(JaxRavel(self.model).ravel())
+        self.opt_state = self.tx.init(raveler(self.model).ravel())
         self.iters = iters
         self.batch_route = batch_route
         self.eval_impl = eval_impl
@@ -397,6 +436,7 @@ class OnlineDenoiser:
         eval-mode denoise of ``cur`` with the updated weights, and the
         ``iters`` losses, one before each update."""
         self._frames += 1
+        resolve_device_times()
         with annotate("online.frame", self._frames):
             self.opt_state, deno, losses = self._step(
                 self.opt_state, self._tensor(cur), self._tensor(prev),
@@ -432,8 +472,9 @@ class OnlineDenoiser:
 
     @property
     def variables(self):
-        """The served weights as a JAX-layout tree of numpy arrays."""
-        return to_jax_variables(self.model)
+        """The served weights as the model's tree of numpy arrays (the JAX
+        layout for a DnCNN)."""
+        return arch_of(self.model).to_jax_variables(self.model)
 
 
 FLOW_BACKENDS = ("auto", True, "cpu", False, "off", "tpu")

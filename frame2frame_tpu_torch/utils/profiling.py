@@ -18,6 +18,14 @@ thread, ``id`` the frame or call it belongs to (the enclosing span's where
 not given), ``thread`` the recording thread's ``threading.get_ident()``,
 and ``t0``, ``t1`` are ``time.perf_counter`` seconds. Spans are kept in
 memory (``recorded``, ``clear``); ``trace_if`` writes them out.
+
+Device-time counters: ``device_timed(name, fn, x)`` runs ``fn(x)`` and,
+while a profiler runs and ``x`` is on a CUDA card, records CUDA events on
+the current stream at either end of it, in the forward and, through an
+identity autograd function at each end, in the backward; each pair's
+elapsed time is added to the counter ``device_ms.<name>`` (ms) once both
+events have completed (``resolve_device_times``; ``recorded`` waits for
+them).
 """
 
 from __future__ import annotations
@@ -39,6 +47,8 @@ _counters = {}
 _counters_lock = threading.Lock()
 _open = threading.local()  # .stack: the spans open on this thread
 _NULL = contextlib.nullcontext()
+_pending = []  # (counter, start event, end event) not yet resolved
+TIMED_DEVICES = ("cuda",)
 
 
 @contextlib.contextmanager
@@ -111,19 +121,98 @@ def count(name, n=1):
             _counters[name] = _counters.get(name, 0) + n
 
 
+def _event(device):
+    """A CUDA timing event recorded on ``device``'s current stream."""
+    e = torch.cuda.Event(enable_timing=True)
+    e.record(torch.cuda.current_stream(device))
+    return e
+
+
+class _Pair:
+    """The events at the two ends of one timed call, for its forward and
+    then for its backward."""
+
+    __slots__ = ("name", "device", "start")
+
+    def __init__(self, name, device):
+        self.name, self.device, self.start = name, device, None
+
+    def begin(self):
+        self.start = _event(self.device)
+
+    def end(self):
+        stop = _event(self.device)
+        with _counters_lock:
+            _pending.append((self.name, self.start, stop))
+
+
+class _Edge(torch.autograd.Function):
+    """The identity, marking one end of a timed call: the forward meets the
+    first edge first, the backward the last."""
+
+    @staticmethod
+    def forward(ctx, x, pair, first):
+        ctx.pair, ctx.first = pair, first
+        if first:
+            pair.begin()
+        else:
+            pair.end()
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.first:
+            ctx.pair.end()
+        else:
+            ctx.pair.begin()
+        return g, None, None
+
+
+def device_timed(name, fn, x):
+    """``fn(x)``, with its device time in the forward and in the backward
+    added to the counter ``device_ms.<name>`` while a profiler runs and
+    ``x`` lies on a CUDA card; ``fn(x)`` alone otherwise."""
+    if (not _autograd_profiler._is_profiler_enabled
+            or x.device.type not in TIMED_DEVICES):
+        return fn(x)
+    pair = _Pair(f"device_ms.{name}", x.device)
+    return _Edge.apply(fn(_Edge.apply(x, pair, True)), pair, False)
+
+
+def resolve_device_times(wait=False):
+    """Add the elapsed time of each pending pair of events whose end has
+    completed (every pair, waiting for it, with ``wait``) to its
+    counter."""
+    with _counters_lock:
+        left = []
+        for name, start, stop in _pending:
+            if wait:
+                stop.synchronize()
+            elif not stop.query():
+                left.append((name, start, stop))
+                continue
+            _counters[name] = _counters.get(name, 0.0) + start.elapsed_time(
+                stop)
+        _pending[:] = left
+
+
 def recorded():
     """``{"spans": [Span], "counters": {name: n}}`` recorded so far, spans
-    in the order they closed."""
+    in the order they closed; the device times of every timed call
+    included (``device_timed``: waits for them)."""
+    resolve_device_times(wait=True)
     with _counters_lock:
         counters = dict(_counters)
     return {"spans": list(_spans), "counters": counters}
 
 
 def clear():
-    """Forget every span and counter recorded so far."""
+    """Forget every span, counter and pending device time recorded so
+    far."""
     _spans.clear()
     with _counters_lock:
         _counters.clear()
+        _pending.clear()
 
 
 def write_spans(path):
